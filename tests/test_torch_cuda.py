@@ -12,6 +12,7 @@ import torch
 
 from vp8oclenc_tpu_torch.config import EncoderConfig
 from vp8oclenc_tpu_torch.io.y4m import Frame
+from vp8oclenc_tpu_torch.ops import inter as IN
 from vp8oclenc_tpu_torch.ops import intra as I
 from vp8oclenc_tpu_torch.ops import loopfilter as LF
 from vp8oclenc_tpu_torch.pipeline.encoder import Encoder
@@ -73,3 +74,88 @@ def test_gop1_stream_card_equals_cpu(dev):
     b = list(cpu.encode_frames(frames))
     cpu.close()
     assert a == b
+
+
+def _moving(w, h, n, seed):
+    """A textured canvas panned a few pixels per frame plus a little noise:
+    coherent enough that every frame after the first is an inter frame."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:2 * h, 0:2 * w]
+    base = ((xx * 7 + yy * 3) % 256) // 2 + rng.integers(0, 100, yy.shape)
+    base = base.clip(0, 255).astype(np.uint8)
+    frames = []
+    for t in range(n):
+        oy, ox = 2 * t, 3 * t + (t % 2)
+        c = base[oy // 2:oy // 2 + h // 2, ox // 2:ox // 2 + w // 2]
+        frames.append(Frame(base[oy:oy + h, ox:ox + w].copy(),
+                            c // 2 + 60, c[::-1].copy() // 2 + 60))
+    return frames
+
+
+@pytest.mark.parametrize("size", [(96, 80), (80, 64), (48, 96)])
+def test_search_kernels_match_plain(dev, size):
+    """Both search kernels on every pyramid level that holds a block, with
+    vectors large enough that windows and candidates cross the frame edge,
+    with and without the penalty."""
+    w, h = size
+    rng = np.random.default_rng(w * h)
+    f = _moving(w, h, 4, seed=w)
+    cur = IN.build_pyramid(torch.from_numpy(f[3].y).to(dev))
+    refs = [IN.build_pyramid(torch.from_numpy(g.y).to(dev)) for g in f[:3]]
+    for lvl in range(5):
+        c = cur[lvl]
+        H, W = c.shape
+        n = (H // 8) * (W // 8)
+        if n == 0:
+            continue
+        r = torch.stack([p[lvl] for p in refs]).contiguous()
+        v0 = rng.integers(-12, 13, (3, n, 2))
+        v0[:, 0], v0[:, -1] = -12, 12      # windows beyond both corners
+        v0 = torch.as_tensor(v0, dtype=torch.int32, device=dev)
+        for penalty in (False, True):
+            k = IN.fullpel_search(c, r, v0, penalty)
+            p = IN.fullpel_search_plain(c, r, v0, penalty)
+            assert torch.equal(k, p), (lvl, penalty)
+        before = IN.qpel_search.launches
+        k = IN.qpel_search(c, r, v0)
+        p = IN.qpel_search_plain(c, r, v0)
+        assert IN.qpel_search.launches == before + 1
+        assert all(torch.equal(a, b) for a, b in zip(k, p)), lvl
+    torch.cuda.synchronize()
+
+
+def test_default_gop_stream_card_equals_cpu(dev):
+    w, h = 96, 80
+    frames = _moving(w, h, 5, seed=4)
+    cfg = dict(qi_min=8, qi_max=30, gop_size=100, altref_range=3)
+    counters = (I.luma_wavefront, IN.fullpel_search, IN.qpel_search,
+                LF.filter_planes)
+    before = [c.launches for c in counters]
+    gpu = Encoder(EncoderConfig(**cfg), w, h, device=dev)
+    a = list(gpu.encode_frames(frames))
+    gpu.close()
+    after = [c.launches for c in counters]
+    # 1 keyframe, 4 inter frames: levels 3..0 hold blocks at 96x80
+    assert [y - x for x, y in zip(before, after)] == [1, 16, 4, 5]
+    cpu = Encoder(EncoderConfig(**cfg), w, h, device="cpu")
+    b = list(cpu.encode_frames(frames))
+    cpu.close()
+    assert a == b
+
+
+def test_inter_dispatch_never_waits_for_the_card(dev):
+    """Dispatching an inter frame's chain makes no call that synchronizes
+    the stream (a per-call copy from pageable host memory would), so the
+    host codes one frame while the card runs the next."""
+    from vp8oclenc_tpu_torch.pipeline.encoder import _own_padded
+    frames = _moving(96, 80, 3, seed=6)
+    enc = Encoder(EncoderConfig(qi_min=8, qi_max=30), 96, 80, device=dev)
+    list(enc.encode_frames(frames[:2]))          # key, then warm constants
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fd, seg = enc._frame_pixels(_own_padded(frames[2]))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert not fd.is_key
+    enc.backend.finalize_framedata(fd, seg)
+    enc.close()

@@ -1,0 +1,291 @@
+"""The port's inter-frame modules (ops/inter.py, ssim_fx.py, the inter
+half of ops/transforms.py and filter_from_meta) against the JAX package's
+ops/inter.py, ops/transforms.py, ssim_fx.py and ops/loopfilter.py on the
+same seeded inputs, bit for bit (tolerance 0).  On the CPU the JAX side
+runs its XLA path (pallas_kernels.mode() is "off"), and the port runs the
+plain versions of its search kernels."""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from vp8oclenc_tpu.config import EncoderConfig as JaxConfig
+from vp8oclenc_tpu.io.y4m import pad_frame
+from vp8oclenc_tpu.ops import inter as JI
+from vp8oclenc_tpu.ops import transforms as JT
+from vp8oclenc_tpu.ops.loopfilter import build_filter_from_meta_kernel
+from vp8oclenc_tpu.pipeline.segments import prepare_segments
+from vp8oclenc_tpu.ssim_fx import WEAKEN_FX, mb_ssim_fx as np_mb_ssim_fx
+from vp8oclenc_tpu_torch import ssim_fx as TS
+from vp8oclenc_tpu_torch.ops import inter as TI
+from vp8oclenc_tpu_torch.ops import transforms as TT
+from vp8oclenc_tpu_torch.ops.backend import filter_from_meta
+
+from tests.test_inter_roundtrip import moving_sequence
+
+SIZES = [(96, 80), (70, 50)]
+
+
+def _frames(size, n=4, seed=3):
+    """Padded (MB-aligned) planes of a panned textured sequence."""
+    w, h = size
+    return [pad_frame(f) for f in moving_sequence(w, h, n, seed=seed)]
+
+
+def _eq(got, want, what=""):
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert np.array_equal(got.astype(np.int64), want.astype(np.int64)), \
+        f"{what}: {np.sum(got != want)} values differ"
+
+
+def _jit(fn, *static):
+    """fn(*arrays, *static) compiled once (op-by-op JAX on the CPU is
+    several times slower than compiling these small graphs)."""
+    return jax.jit(lambda *a: fn(*a, *static))
+
+
+def _setup(size, seed=3):
+    """(cur pyramid, stacked ref pyramid) of the port and of JAX."""
+    f = _frames(size, seed=seed)
+    refs = np.stack([g.y for g in f[:3]])
+    H, W = refs.shape[1:]
+    cur_t = TI.build_pyramid(torch.from_numpy(f[3].y))
+    refs_t = [torch.stack(lv) for lv in
+              zip(*(TI.build_pyramid(torch.from_numpy(r)) for r in refs))]
+    cur_j = [jnp.asarray(f[3].y)]
+    for _ in range(4):
+        cur_j.append(JI.downsample2(cur_j[-1]))
+    return cur_t, refs_t, cur_j, JI.build_ref_pyramid(jnp.asarray(refs), H, W)
+
+
+def _jax_hierarchical(cur_j, ref_pyr):
+    extra = [(pads, dims) for _, pads, dims in ref_pyr]
+    run = jax.jit(lambda c, planes: JI.hierarchical_search(
+        c, [(p, *e) for p, e in zip(planes, extra)]))
+    return run(cur_j, [p for p, _, _ in ref_pyr])
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_pyramid_matches(size):
+    cur_t, refs_t, cur_j, ref_pyr = _setup(size)
+    for lvl in range(5):
+        _eq(cur_t[lvl], cur_j[lvl], f"cur level {lvl}")
+        plane, (py, px), (h, w) = ref_pyr[lvl]
+        _eq(refs_t[lvl], np.asarray(plane)[:, py:py + h, px:px + w],
+            f"ref level {lvl}")
+
+
+# (level, pixel rate, penalty, parent vector)
+LEVEL_CASES = [(3, 8, False, False), (2, 4, False, True), (1, 2, True, True),
+               (0, 1, True, False)]
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("lvl,rate,penalty,parent", LEVEL_CASES)
+def test_search_level_matches(size, lvl, rate, penalty, parent):
+    cur_t, refs_t, cur_j, ref_pyr = _setup(size)
+    h, w = cur_t[lvl].shape
+    src = None
+    if parent:
+        rng = np.random.default_rng(lvl + w)
+        hc, wc = cur_t[lvl + 1].shape
+        src = rng.integers(-6 * rate, 6 * rate + 1,
+                           (3, max(hc // 8, 1), max(wc // 8, 1), 2))
+        src = src.astype(np.int32)
+    got = TI.search_level(cur_t[lvl], refs_t[lvl],
+                          None if src is None else torch.from_numpy(src),
+                          rate, penalty)
+    plane, pads, _ = ref_pyr[lvl]
+    run = _jit(lambda c, p, *s: JI.search_level(c, p, pads, *(s or [None]),
+                                                rate, penalty))
+    want = run(cur_j[lvl], plane, *([] if src is None else
+                                    [jnp.asarray(src)]))
+    _eq(got, want, "vectors")
+    assert got.abs().max() > 0
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_search_qpel_matches(size):
+    cur_t, refs_t, cur_j, ref_pyr = _setup(size)
+    H, W = cur_t[0].shape
+    rng = np.random.default_rng(W)
+    fv = rng.integers(-6, 7, (3, H // 8, W // 8, 2)).astype(np.int32)
+    fv[:, 0, 0], fv[:, -1, -1] = -6, 6            # candidates off both edges
+    vec, diff, pred = TI.search_qpel(cur_t[0], refs_t[0], torch.from_numpy(fv))
+    plane, pads, _ = ref_pyr[0]
+    jv, jd, jp = _jit(lambda c, p, v: JI.search_qpel(c, p, pads, v))(
+        cur_j[0], plane, jnp.asarray(fv))
+    _eq(vec, jv, "vectors")
+    _eq(diff, jd, "Bdiff")
+    _eq(pred, jp, "best_pred")
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_hierarchical_search_matches(size):
+    cur_t, refs_t, cur_j, ref_pyr = _setup(size, seed=9)
+    got = TI.hierarchical_search(cur_t, refs_t)
+    want = _jax_hierarchical(cur_j, ref_pyr)
+    for g, j, what in zip(got, want, ("vectors", "Bdiff", "best_pred")):
+        _eq(g, j, what)
+    assert got[0].abs().max() > 0
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_mc_predict_selected_uv_matches(size):
+    f = _frames(size)
+    ru = np.stack([g.u for g in f[:3]])
+    rv = np.stack([g.v for g in f[:3]])
+    H2, W2 = ru.shape[1:]
+    mbw, mbh = W2 // 8, H2 // 8
+    rng = np.random.default_rng(W2)
+    mvs = rng.integers(-40, 41, (mbw * mbh, 4, 2)).astype(np.int32)
+    sel = rng.integers(0, 3, mbw * mbh).astype(np.int32)
+    got = TI.mc_predict_selected_uv(torch.from_numpy(ru), torch.from_numpy(rv),
+                                    torch.from_numpy(mvs),
+                                    torch.from_numpy(sel))
+    bx = np.tile(np.arange(W2 // 4), H2 // 4)
+    by = np.repeat(np.arange(H2 // 4), W2 // 4)
+    pad = JI.PAD_C_FULL
+    run = _jit(lambda u, v, m, s, mb, qi: JI.mc_predict_selected_uv(
+        JI._pad_tiles(u, pad, pad), JI._pad_tiles(v, pad, pad), (pad, pad),
+        m, s, mb, qi, 8, H2, W2))
+    want = run(jnp.asarray(ru), jnp.asarray(rv), jnp.asarray(mvs),
+               jnp.asarray(sel), jnp.asarray((by // 2) * mbw + bx // 2),
+               jnp.asarray((by % 2) * 2 + bx % 2))
+    for g, j, what in zip(got, want, "uv"):
+        _eq(g, j, what)
+
+
+def test_wht_matches():
+    rng = np.random.default_rng(5)
+    dcs = rng.integers(-2048, 2048, (64, 4, 4)).astype(np.int32)
+    dcs[0] = 2047
+    dcs[1] = -2048
+    _eq(TT.fwht4x4(torch.from_numpy(dcs)), JT.fwht4x4(jnp.asarray(dcs)), "fwht")
+    dq = rng.integers(-30000, 30000, (64, 4, 4)).astype(np.int32)
+    _eq(TT.iwht4x4(torch.from_numpy(dq)), JT.iwht4x4(jnp.asarray(dq)), "iwht")
+
+
+@pytest.mark.parametrize("q", [(4, 4, 8, 8), (33, 41, 66, 51), (157, 284, 314, 440)])
+def test_transform_mb_matches(q):
+    rng = np.random.default_rng(q[0])
+    mbc = 30
+    res = rng.integers(-255, 256, (mbc, 16, 4, 4)).astype(np.int32)
+    res[:6] = rng.integers(-20, 21, (6, 16, 4, 4))      # small residuals
+    parts = rng.integers(0, 2, mbc).astype(np.int32)
+    got = TI.transform_mb_luma(torch.from_numpy(res), torch.from_numpy(parts),
+                               *q)
+    want = _jit(JI.transform_mb_luma, *q)(jnp.asarray(res),
+                                          jnp.asarray(parts))
+    for g, j, what in zip(got, want, ("levels", "y2", "rec_res")):
+        _eq(g, j, what)
+    cres = res[:, :4]
+    got = TI.transform_mb_chroma(torch.from_numpy(cres), q[0], q[1])
+    want = _jit(JI.transform_mb_chroma, q[0], q[1])(jnp.asarray(cres))
+    for g, j, what in zip(got, want, ("levels", "rec_res")):
+        _eq(g, j, what)
+
+
+def test_mb_ssim_matches_with_int32_overflow():
+    """Blocks of all 255 against all 0 (and all 255 against all 255) push
+    n*q1 and s1*s1 past int32; the port computes them in int64."""
+    rng = np.random.default_rng(17)
+    H, W = 48, 64
+    planes = [rng.integers(0, 256, (h, w)).astype(np.int32)
+              for h, w in ((H, W), (H, W), (H // 2, W // 2), (H // 2, W // 2),
+                           (H // 2, W // 2), (H // 2, W // 2))]
+    y, ry, u, ru, v, rv = planes
+    y[:16, :16], ry[:16, :16] = 255, 0
+    y[:16, 16:32], ry[:16, 16:32] = 255, 255
+    y[16:32, :16], ry[16:32, :16] = 0, 0
+    u[:8, :8], ru[:8, :8] = 255, 0
+    v[:8, 8:16], rv[:8, 8:16] = 255, 255
+    got = TS.mb_ssim_fx(*(torch.from_numpy(p) for p in planes))
+    assert got.dtype == torch.int32
+    _eq(got, np_mb_ssim_fx(*planes), "numpy mb_ssim_fx")
+    _eq(got, _jit(JI.mb_ssim)(*(jnp.asarray(p) for p in planes)),
+        "jax mb_ssim")
+
+
+def _inter_inputs(size, ref_valid):
+    w, h = size
+    f = _frames(size, n=5, seed=11)
+    cfg = JaxConfig(qi_min=8, qi_max=30)
+    seg = prepare_segments(cfg, f[4].y, False, False)
+    weak = prepare_segments(cfg, f[4].y, False, False, weaken_filter=True,
+                            strength=seg.raw_strength)
+    refs = [np.stack([getattr(g, p) for g in f[:3]]) for p in "yuv"]
+    return f[4], refs, seg, weak
+
+
+@pytest.fixture(scope="module", params=[
+    ((96, 80), (True, True, False)), ((70, 50), (True, False, True))])
+def inter_case(request):
+    """One inter frame through the JAX package's fused inter kernel (SSIM
+    off) and through the port's inter_body, on the same inputs."""
+    size, ref_valid = request.param
+    cur, refs, seg, weak = _inter_inputs(size, ref_valid)
+    H, W = cur.y.shape
+    q = [jnp.asarray(np.asarray(a, np.int32)) for a in
+         (seg.y_dc_q, seg.y_ac_q, seg.y2_dc_q, seg.y2_ac_q, seg.uv_dc_q,
+          seg.uv_ac_q)]
+    kern = JI.build_inter_kernel(W, H, ssim_enabled=False)
+    want = kern(jnp.asarray(cur.y), jnp.asarray(cur.u), jnp.asarray(cur.v),
+                *(jnp.asarray(r) for r in refs), jnp.asarray(ref_valid), *q,
+                jnp.int32(-1))
+    states = [TI.ref_state(*(torch.from_numpy(r[i]) for r in refs))
+              for i in range(3)]
+    quant = tuple(int(np.asarray(a)[3]) for a in
+                  (seg.y_dc_q, seg.y_ac_q, seg.y2_dc_q, seg.y2_ac_q,
+                   seg.uv_dc_q, seg.uv_ac_q))
+    got = TI.inter_body(torch.from_numpy(cur.y), torch.from_numpy(cur.u),
+                        torch.from_numpy(cur.v), states, ref_valid, quant)
+    lf = np.stack([np.stack([s.loop_filter_level, s.mbedge_limit,
+                             s.sub_bedge_limit, s.interior_limit,
+                             s.hev_threshold]) for s in (seg, weak)]) \
+        .astype(np.int32)
+    return got, want, lf, (W // 16, H // 16)
+
+
+def test_inter_body_matches(inter_case):
+    got, want, _, _ = inter_case
+    for g, j, what in zip(got, want, ("levels_pack", "meta", "cur_ssim",
+                                      "recon_y", "recon_u", "recon_v")):
+        _eq(g, j, what)
+    assert got[0].dtype == torch.int16 and got[1].dtype == torch.int32
+    meta = got[1].numpy()
+    assert (meta[:, 3:] != 0).any()                 # some MBs moved
+    assert (meta[:, 1] == 0).any() and (meta[:, 1] == 1).any()
+
+
+@pytest.mark.parametrize("weaken", [False, True])
+def test_filter_from_meta_matches(inter_case, weaken):
+    """Filtered planes and the next LAST's pyramid (the interiors of the
+    JAX package's padded levels), with the normal and the weakened
+    limits."""
+    got, _, lf, (mbw, mbh) = inter_case
+    levels_pack, meta, cur_ssim, ry, ru, rv = got
+    if weaken:
+        cur_ssim = torch.full_like(cur_ssim, WEAKEN_FX + 1)
+    elif int(cur_ssim.min()) > WEAKEN_FX:
+        cur_ssim = cur_ssim.clone()
+        cur_ssim[0] = WEAKEN_FX
+    planes = filter_from_meta(ry, ru, rv, levels_pack, meta, cur_ssim,
+                              torch.from_numpy(lf))
+    pyr, fu, fv = TI.ref_state(*planes)
+    (jy, ju, jv), (jpyr, _, _, _) = build_filter_from_meta_kernel(mbw, mbh)(
+        *(jnp.asarray(t.numpy()) for t in (ry, ru, rv, levels_pack, meta,
+                                           cur_ssim)), jnp.asarray(lf))
+    for g, j, what in zip(planes, (jy, ju, jv), "yuv"):
+        _eq(g, j, f"filtered {what}")
+    assert fu is planes[1] and fv is planes[2]
+    H, W = ry.shape
+    for lvl in range(5):
+        pad = JI.PAD_Y_FULL >> lvl
+        _eq(pyr[lvl], np.asarray(jpyr[lvl])[pad:pad + (H >> lvl),
+                                            pad:pad + (W >> lvl)],
+            f"pyramid level {lvl}")

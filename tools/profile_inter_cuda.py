@@ -1,0 +1,97 @@
+"""Where one 1080p inter frame of the PyTorch/CUDA port spends its time, on
+one NVIDIA GPU, from a torch.profiler trace.
+
+    python3 tools/profile_inter_cuda.py
+
+Encodes the keyframe and one inter frame of chip_smoke.py's panned canvas
+(default GOP, qi 10..40) to warm up, then traces 3 more inter frames, each
+dispatched (`Encoder._frame_pixels`), synchronized and finalized.  Prints,
+per inter frame: device time by kernel name (the top entries and the
+rest), the number of device kernels, the host time of the dispatch and
+the number of kernel launches it made.  The Chrome trace goes to
+chiprun_out/profile_inter_cuda.json.  Exits non-zero without a card or
+when the trace holds no device time.
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N_TRACED = 3
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_inter_cuda: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from chip_smoke import nvidia_smi_line, synth_moving, W, H
+    from torch.profiler import ProfilerActivity, profile
+    from vp8oclenc_tpu_torch.config import EncoderConfig
+    from vp8oclenc_tpu_torch.pipeline.encoder import Encoder, _own_padded
+
+    print(nvidia_smi_line())
+    frames = synth_moving(2 + N_TRACED, seed=1)
+    enc = Encoder(EncoderConfig(qi_min=10, qi_max=40, gop_size=150,
+                                altref_range=5), W, H, device="cuda")
+    for f in frames[:2]:
+        fd, seg = enc._frame_pixels(_own_padded(f))
+        enc.backend.finalize_framedata(fd, seg)
+        enc._finish_frame(fd, seg)
+    padded = [_own_padded(f) for f in frames[2:]]
+    torch.cuda.synchronize()
+
+    dispatch_ms = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for p in padded:
+            t0 = time.perf_counter()
+            fd, seg = enc._frame_pixels(p)
+            dispatch_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            enc.backend.finalize_framedata(fd, seg)
+            if fd.is_key:
+                raise AssertionError("a traced frame was a keyframe")
+    enc.close()
+
+    device, launches = {}, 0
+    for ev in prof.events():
+        dt = getattr(ev, "device_type", None)
+        if dt == torch.autograd.DeviceType.CUDA:
+            device.setdefault(ev.name, [0, 0.0])
+            device[ev.name][0] += 1
+            device[ev.name][1] += ev.time_range.elapsed_us() / 1e3
+        elif ev.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                         "cudaLaunchKernelExC"):
+            launches += 1
+    total = sum(ms for _, ms in device.values())
+    if total <= 0:
+        raise AssertionError("the trace holds no device time")
+    rows = sorted(device.items(), key=lambda kv: -kv[1][1])
+    print(f"per inter frame, mean of {N_TRACED} (1920x1088): device time "
+          f"{total / N_TRACED:.3f} ms in "
+          f"{sum(c for c, _ in device.values()) / N_TRACED:.1f} device "
+          f"kernels and copies; host dispatch "
+          f"{sum(dispatch_ms) / N_TRACED:.3f} ms with "
+          f"{launches / N_TRACED:.1f} kernel launches")
+    top = [{"name": name[:90], "calls": c / N_TRACED,
+            "ms": round(ms / N_TRACED, 4),
+            "share": round(ms / total, 4)} for name, (c, ms) in rows[:20]]
+    rest = sum(ms for _, (_, ms) in rows[20:])
+    for r in top:
+        print(json.dumps(r))
+    print(json.dumps({"name": "(all others)", "ms": round(rest / N_TRACED, 4),
+                      "share": round(rest / total, 4)}))
+    out = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out, "profile_inter_cuda.json"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

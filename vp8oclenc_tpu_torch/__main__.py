@@ -1,10 +1,11 @@
 """CLI entry point: Y4M in, IVF out, encoded on an NVIDIA GPU (or with the
 kernels' plain PyTorch versions on the CPU under `-device cpu`).
 
-    python -m vp8oclenc_tpu_torch -i in.y4m -o out.ivf -g 1
+    python -m vp8oclenc_tpu_torch -i in.y4m -o out.ivf
 
-Only all-keyframe streams are ported so far: any GOP size other than 1 is
-refused at start-up."""
+Keyframes and inter frames are ported with SSIM control off (the
+default); an -SSIM-target above 0 is refused at start-up until the SSIM
+controller is ported."""
 from __future__ import annotations
 
 import sys
@@ -28,10 +29,10 @@ def main(argv=None) -> int:
         for i in range(torch.cuda.device_count()):
             print(f"{i}. cuda: {torch.cuda.get_device_name(i)}")
         return 0
-    if args.gop != 1:
-        parser.error(f"-g {args.gop}: only all-keyframe streams (-g 1) are "
-                     f"ported to the GPU so far; inter frames are "
-                     f"ROADMAP.md, Queue 1 item 6")
+    if args.ssim_target > 0:
+        parser.error(f"-SSIM-target {args.ssim_target}: the SSIM controller "
+                     f"is not ported to the GPU yet (ROADMAP.md, Queue 1 "
+                     f"item 9); leave SSIM control off")
     cfg = config_from_args(args)
 
     reader = Y4MReader(args.input)

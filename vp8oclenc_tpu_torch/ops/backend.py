@@ -1,13 +1,18 @@
-"""Torch backend: device-resident encoder state and the keyframe device
-chain (the counterpart of the JAX package's ops/backend.py TPUBackend).
+"""Torch backend: device-resident encoder state and the per-frame device
+chains (the counterpart of the JAX package's ops/backend.py TPUBackend).
 
-Per keyframe the chain is: H2D of the frame, the luma and chroma intra
-wavefront kernels, the loop-filter kernel, then an asynchronous D2H of
-`levels_pack` and `modes` into pinned host buffers with a CUDA event
-recorded behind it.  `finalize_framedata` waits on that event only when the
-host entropy stage needs the levels, so the host codes frame N while the
-card runs frame N+1.  The post-filter planes stay on the device as the
-LAST/GOLDEN/ALTREF references.
+Keyframe chain: H2D of the frame, the luma and chroma intra wavefront
+kernels, the loop-filter kernel.  Inter chain (SSIM control off): H2D, the
+inter body (pyramid, full-pel and quarter-pel search kernels, reference
+selection, chroma MC, one LQ pass, per-MB SSIM), then the loop filter fed
+from the body's outputs, with the inner-edge mask and the weakened limits
+chosen on the device.  Each chain ends with an asynchronous D2H of what
+the host entropy stage needs into pinned host buffers with a CUDA event
+recorded behind it; `finalize_framedata` waits on that event only when the
+host needs the frame, so the host codes frame N while the card runs frame
+N+1.  The post-filter planes stay on the device as the LAST/GOLDEN/ALTREF
+references, each with its search state (5-level pyramid and chroma planes,
+ops/inter.ref_state), built once when the frame becomes a reference.
 """
 from __future__ import annotations
 
@@ -15,7 +20,10 @@ import numpy as np
 import torch
 
 from vp8oclenc_tpu_torch.config import EncoderConfig
-from vp8oclenc_tpu_torch.tables import INTRA_SEGMENT, SEGMENT_COUNT
+from vp8oclenc_tpu_torch.ssim_fx import Q3, WEAKEN_FX
+from vp8oclenc_tpu_torch.tables import (ALTREF, ARE4X4, ARE16X16, GOLDEN,
+                                        INTRA_SEGMENT, LAST, LQ_SEGMENT,
+                                        SEGMENT_COUNT)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -60,11 +68,15 @@ class TorchBackend:
         self.mbw = wrk_w // 16
         self.mbh = wrk_h // 16
         self.mbc = self.mbw * self.mbh
-        # device state: post-filter reference planes (y, u, v); each
-        # keyframe's chain runs its own loop filter
+        # device state: post-filter reference planes (y, u, v) and their
+        # search states (ops/inter.ref_state); each chain runs its own
+        # loop filter
         self.last = None
         self.golden = None
         self.altref = None
+        self.last_state = None
+        self.golden_state = None
+        self.altref_state = None
         # keyframe per-MB constants: every MB in INTRA_SEGMENT, every MB
         # split (ARE4X4), so the inner-edge mask is all true
         self._key_seg = torch.full((self.mbc,), INTRA_SEGMENT,
@@ -98,52 +110,155 @@ class TorchBackend:
         ry, ru, rv, levels_pack, modes = intra_body(
             yd, ud, vd, int(seg.y_dc_q[sid]), int(seg.y_ac_q[sid]),
             int(seg.uv_dc_q[sid]), int(seg.uv_ac_q[sid]))
-        lf = np.stack([np.asarray(a, dtype=np.int32).reshape(SEGMENT_COUNT)
-                       for a in (seg.loop_filter_level, seg.mbedge_limit,
-                                 seg.sub_bedge_limit, seg.interior_limit,
-                                 seg.hev_threshold)])
-        lf_dev = upload(lf, self.device)
+        lf_dev = upload(self._lf_rows(seg), self.device)
         filtered = filter_planes(ry, ru, rv, self._key_seg, self._key_inner,
                                  *lf_dev)
-        levels_host = _to_host_async(levels_pack)
-        modes_host = _to_host_async(modes)
+        self._set_last(filtered)
+        return self._to_host(levels_pack, modes), PendingRecon(filtered)
+
+    def _to_host(self, *tensors):
+        """(event, host copies): asynchronous D2H of each tensor, with a
+        CUDA event recorded behind the copies (None on the CPU)."""
+        host = tuple(_to_host_async(t) for t in tensors)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
-        self.last = filtered
-        return (event, levels_host, modes_host), PendingRecon(filtered)
+        return (event,) + host
+
+    def _set_last(self, planes) -> None:
+        """LAST becomes `planes`, with its search state."""
+        from vp8oclenc_tpu_torch.ops.inter import ref_state
+        self.last = planes
+        self.last_state = ref_state(*planes)
+
+    # -------------------------------------------------- inter
+    def encode_inter_frame(self, enc, y, u, v, seg, is_golden, is_altref,
+                           yuv_dev=None):
+        """Dispatch one inter frame's chain (SSIM control off); returns the
+        FrameData with its levels and metadata still on their way to the
+        host.  A reference the frame may not use (GOLDEN right after a
+        golden frame, ALTREF right after an altref or while it equals
+        GOLDEN) is stood in for by LAST's state and marked invalid."""
+        from vp8oclenc_tpu_torch.ops.inter import inter_body
+        from vp8oclenc_tpu_torch.pipeline.encoder import FrameData
+        from vp8oclenc_tpu_torch.pipeline.segments import prepare_segments
+
+        use_golden = not enc.prev_is_golden
+        use_altref = (not enc.prev_is_altref) and \
+            (enc.altref_frame_number != enc.golden_frame_number)
+        ls = self.last_state
+        gs = self.golden_state \
+            if (use_golden and self.golden_state is not None) else ls
+        als = self.altref_state \
+            if (use_altref and self.altref_state is not None) else ls
+
+        if yuv_dev is None:
+            yuv_dev = self.upload_frame(y, u, v)
+        yd, ud, vd = self._split_yuv(yuv_dev)
+        sid = LQ_SEGMENT
+        quant = tuple(int(q[sid]) for q in (
+            seg.y_dc_q, seg.y_ac_q, seg.y2_dc_q, seg.y2_ac_q, seg.uv_dc_q,
+            seg.uv_ac_q))
+        levels_pack, meta, cur_ssim, ry, ru, rv = inter_body(
+            yd, ud, vd, (ls, gs, als), (True, use_golden, use_altref), quant)
+
+        # the loop filter runs on the device outputs; the weakened limits
+        # are selected there when min SSIM > WEAKEN_FX
+        weak = prepare_segments(self.cfg, y, False, is_altref,
+                                weaken_filter=True, strength=seg.raw_strength)
+        lf = upload(np.stack([self._lf_rows(s_) for s_ in (seg, weak)]),
+                    self.device)
+        filtered = filter_from_meta(ry, ru, rv, levels_pack, meta, cur_ssim,
+                                    lf)
+        self._set_last(filtered)
+
+        mbc = self.mbc
+        fd = FrameData(
+            mbw=self.mbw, mbh=self.mbh, is_key=False, is_golden=is_golden,
+            is_altref=is_altref, levels=None, parts=None, segment_ids=None,
+            modes=np.zeros((mbc, 16), dtype=np.int8),
+            is_inter=None, ref_frame=None, mvs=None)
+        fd.device_outputs = self._to_host(levels_pack, meta, cur_ssim)
+        fd.weak_seg = weak
+        enc.recon = PendingRecon(filtered)
+        return fd
+
+    @staticmethod
+    def _lf_rows(seg) -> np.ndarray:
+        """(5, 4) int32 per-segment filter level, MB-edge limit, subblock
+        limit, interior limit and HEV threshold."""
+        return np.stack([np.asarray(a, dtype=np.int32).reshape(SEGMENT_COUNT)
+                         for a in (seg.loop_filter_level, seg.mbedge_limit,
+                                   seg.sub_bedge_limit, seg.interior_limit,
+                                   seg.hev_threshold)])
 
     def finalize_framedata(self, fd, seg):
-        """Wait for the frame's D2H and fill fd.levels / fd.modes.  Returns
-        None: no keyframe asks for a redo."""
+        """Wait for the frame's D2H and fill the FrameData: levels and
+        modes for a keyframe; levels, segment ids, partitionings,
+        references, vectors and the SSIM statistics for an inter frame,
+        whose header takes the weakened filter when min SSIM > WEAKEN_FX
+        (the device chose the same limits).  Returns None: with SSIM
+        control off no frame asks for a redo."""
         outs = getattr(fd, "device_outputs", None)
         if outs is None:
             return None
         fd.device_outputs = None
-        event, levels_host, modes_host = outs
-        if event is not None:
-            event.synchronize()
-        fd.levels = levels_host.numpy()
-        fd.modes = modes_host.numpy()
+        if outs[0] is not None:
+            outs[0].synchronize()
+        fd.levels = outs[1].numpy()
+        if fd.is_key:
+            fd.modes = outs[2].numpy()
+            return None
+        meta = outs[2].numpy()
+        cur_ssim = outs[3].numpy()
+        fd.segment_ids = meta[:, 0].copy()
+        fd.parts = meta[:, 1].copy()
+        fd.is_inter = fd.parts != ARE4X4
+        fd.ref_frame = np.array([LAST, GOLDEN, ALTREF],
+                                dtype=np.int32)[meta[:, 2]]
+        fd.mvs = meta[:, 3:].reshape(-1, 4, 2).astype(np.int16)
+        fd.ssim_min_fx = int(cur_ssim.min())
+        fd.ssim_sum_fx = int(np.maximum(cur_ssim, -Q3)
+                             .astype(np.int64).sum())
+        if fd.ssim_min_fx > WEAKEN_FX:
+            seg.__dict__.update(fd.weak_seg.__dict__)
         return None
 
     def promote_refs(self, is_golden: bool, is_altref: bool) -> None:
         if is_golden:
-            self.golden = self.last
+            self.golden, self.golden_state = self.last, self.last_state
         if is_altref:
-            self.altref = self.last
+            self.altref, self.altref_state = self.last, self.last_state
 
     def set_refs(self, last, golden=None, altref=None) -> None:
-        """Install host reference planes (a restored checkpoint)."""
+        """Install host reference planes (a restored checkpoint) and build
+        their search states."""
+        from vp8oclenc_tpu_torch.ops.inter import ref_state
         put = lambda t: None if t is None else \
-            tuple(upload(p, self.device) for p in t)
-        self.last = put(last)
+            tuple(upload(np.array(p), self.device) for p in t)
+        state = lambda t: None if t is None else ref_state(*t)
+        self._set_last(put(last))
         self.golden = put(golden)
         self.altref = put(altref)
+        self.golden_state = state(self.golden)
+        self.altref_state = state(self.altref)
 
     def materialize_last(self):
         return tuple(p.cpu().numpy() for p in self.last)
+
+
+def filter_from_meta(ry, ru, rv, levels_pack, meta, cur_ssim, lf):
+    """Loop filter fed from the inter body's device outputs: the inner-edge
+    mask (a split MB or any nonzero level) and segment ids come from
+    `levels_pack` and `meta`, and lf (2, 5, 4) holds the normal and the
+    weakened per-segment limits, the weakened ones taken when
+    min(cur_ssim) > WEAKEN_FX.  Nothing waits for the host.  Returns the
+    filtered planes."""
+    from vp8oclenc_tpu_torch.ops.loopfilter import filter_planes
+    inner = (meta[:, 1] != ARE16X16) | (levels_pack != 0).flatten(1).any(1)
+    lf_use = torch.where(cur_ssim.min() > WEAKEN_FX, lf[1], lf[0])
+    return filter_planes(ry, ru, rv, meta[:, 0], inner, *lf_use)
 
 
 class PendingRecon:

@@ -20,7 +20,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("intra", "loopfilter")
+SOURCES = ("intra", "loopfilter", "search")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,6 +31,10 @@ _SIGNATURES = {
     },
     "loopfilter": {
         "vp8_loop_filter": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    },
+    "search": {
+        "vp8_fullpel_search": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "vp8_qpel_search": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
 }
 

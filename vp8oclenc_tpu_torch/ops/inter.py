@@ -1,0 +1,528 @@
+"""Inter-frame (P-frame) pixel path with SSIM control off: the PyTorch
+counterpart of the JAX package's ops/inter.py body (`build_inter_kernel`
+with ssim_enabled=False).
+
+Per frame: the current 5-level pyramid, the hierarchical full-pel search
+over LAST, GOLDEN and ALTREF at once (levels 4..0), the quarter-pel
+refinement with the luma prediction kept from the winning candidate,
+reference selection (LAST <= ALTREF <= GOLDEN on ties), 8x8 -> 16x16
+packing, the chroma six-tap motion compensation, one LQ transform pass
+with Y2/WHT, and the per-MB integer SSIM that feeds the loop filter's
+weaken rule.
+
+Reference state is one tuple per reference: its 5-level pyramid (level 0
+is the post-filter luma plane itself) and its chroma planes, built once
+when a frame becomes a reference (`ref_state`).  The JAX package pads
+every level with an edge-replicated apron and tiles it for the TPU's
+gather; here every read is clamped into the level's own plane instead,
+which is the same thing (spec/motion._gather_blocks): every read of a
+valid candidate stays inside the apron.
+
+The two searches have two versions with one contract each:
+  * `fullpel_search_plain`, `qpel_search_plain`: plain PyTorch on any
+    device, the reference the CUDA kernels are held against;
+  * `fullpel_search`, `qpel_search`: for CUDA tensors they launch the
+    hand-written kernels of csrc/search.cu, for CPU tensors they take the
+    plain versions.
+Chroma MC, the transforms and SSIM are plain PyTorch on either device.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vp8oclenc_tpu_torch.ops import transforms as T
+from vp8oclenc_tpu_torch.ssim_fx import mb_ssim_fx
+from vp8oclenc_tpu_torch.tables import (ARE8X8, ARE16X16, LQ_SEGMENT,
+                                        SIXTAP_FILTERS)
+
+_I32 = torch.int32
+VECTOR_DIFF_WEIGHT = 64
+PEN = VECTOR_DIFF_WEIGHT // 2   # smoothness penalty per pel of |delta|
+BIG = 1 << 28                   # cost of a candidate outside the frame
+_CHUNK = 2048                   # blocks per step of the plain searches
+
+
+# ---------------------------------------------------------------------------
+# pyramid and per-reference state
+# ---------------------------------------------------------------------------
+
+def downsample2(p: torch.Tensor) -> torch.Tensor:
+    """2x2 box average with +2 rounding on int32 sums: (..., H, W) u8 ->
+    (..., H//2, W//2) u8."""
+    h, w = p.shape[-2] // 2, p.shape[-1] // 2
+    q = p[..., :h * 2, :w * 2].to(_I32)
+    s = q.reshape(*q.shape[:-2], h, 2, w, 2).sum(dim=(-3, -1), dtype=_I32)
+    return ((s + 2) // 4).to(torch.uint8)
+
+
+def build_pyramid(plane: torch.Tensor) -> list:
+    """[1x, 1/2, 1/4, 1/8, 1/16] planes; level 0 is `plane` itself."""
+    pyr = [plane]
+    for _ in range(4):
+        pyr.append(downsample2(pyr[-1]))
+    return pyr
+
+
+def ref_state(ry: torch.Tensor, ru: torch.Tensor, rv: torch.Tensor):
+    """Search state of one reference frame: (5-level luma pyramid, U, V)."""
+    return (tuple(build_pyramid(ry)), ru, rv)
+
+
+# ---------------------------------------------------------------------------
+# plain searches
+# ---------------------------------------------------------------------------
+
+def _block_origins(nby: int, nbx: int, device):
+    """(cy, cx) top-left pixel of each 8x8 block in raster order."""
+    b = torch.arange(nby * nbx, device=device)
+    return (b // nbx) * 8, (b % nbx) * 8
+
+
+def _gather(planes: torch.Tensor, pidx, py, px, size: int) -> torch.Tensor:
+    """planes (P, H, W); pidx/py/px broadcastable (...) -> (..., size, size)
+    int32 windows whose top-left is (py, px) in plane pidx, every read
+    clamped into the plane."""
+    _, H, W = planes.shape
+    ar = torch.arange(size, device=planes.device)
+    ys = (py[..., None] + ar).clamp(0, H - 1)
+    xs = (px[..., None] + ar).clamp(0, W - 1)
+    return planes[pidx[..., None, None], ys[..., :, None],
+                  xs[..., None, :]].to(_I32)
+
+
+def _first_min(costs: torch.Tensor) -> torch.Tensor:
+    """Index of the earliest minimum along the last axis."""
+    m = costs.min(dim=-1, keepdim=True).values
+    idx = torch.arange(costs.shape[-1], device=costs.device)
+    return torch.where(costs == m, idx, costs.shape[-1]).min(dim=-1).values
+
+
+def fullpel_search_plain(cur: torch.Tensor, refs: torch.Tensor,
+                         v0: torch.Tensor, penalty: bool) -> torch.Tensor:
+    """Dual-window full-pel search of every 8x8 block of one pyramid level.
+
+    cur (H, W) u8; refs (R, H, W) u8; v0 (R, n, 2) int32 inherited vectors
+    (x, y) in this level's pels, n = (H//8)*(W//8) blocks in raster order.
+    Candidates: window 1 = +-2 around v0 (indices 0..24, dy-major), then
+    window 0 = +-2 around zero (25..49).  Cost = dct_cost_8x8 of the
+    residual, plus 32*(|dx|+|dy|) from v0 when `penalty`; a candidate whose
+    block leaves the W x H plane costs BIG.  The earliest minimum wins.
+    Returns (R, n, 2) int32 offsets (x, y) of the winner from the block."""
+    R, H, W = refs.shape
+    nby, nbx = H // 8, W // 8
+    n = nby * nbx
+    dev = cur.device
+    cy, cx = _block_origins(nby, nbx, dev)
+    d = torch.arange(25, device=dev)
+    ddx, ddy = d % 5 - 2, d // 5 - 2
+    ridx = torch.arange(R, device=dev)[None, :, None]
+    out = torch.empty((R, n, 2), dtype=_I32, device=dev)
+    zero = torch.zeros((), dtype=torch.long, device=dev)
+    for s in range(0, n, _CHUNK):
+        e = min(n, s + _CHUNK)
+        bcy, bcx = cy[s:e], cx[s:e]
+        cur_b = _gather(cur[None], zero, bcy, bcx, 8)               # (nb, 8, 8)
+        v = v0[:, s:e].long()
+        wx = torch.stack([v[..., 0], torch.zeros_like(v[..., 0])])  # (2, R, nb)
+        wy = torch.stack([v[..., 1], torch.zeros_like(v[..., 1])])
+        win = _gather(refs, ridx, bcy + wy - 2, bcx + wx - 2, 12)
+        cand = win.unfold(-2, 8, 1).unfold(-2, 8, 1)       # (2,R,nb,5,5,8,8)
+        cost = T.dct_cost_8x8(cand - cur_b[:, None, None]).flatten(-2)
+        px = bcx[:, None] + wx[..., None] + ddx                # (2, R, nb, 25)
+        py = bcy[:, None] + wy[..., None] + ddy
+        if penalty:
+            cost = cost + ((px - bcx[:, None] - v[None, ..., 0, None]).abs()
+                           + (py - bcy[:, None] - v[None, ..., 1, None])
+                           .abs()) * PEN
+        bad = (px < 0) | (px > W - 8) | (py < 0) | (py > H - 8)
+        cost = torch.where(bad, BIG, cost)
+        flat = lambda a: a.permute(1, 2, 0, 3).reshape(R, e - s, 50)
+        best = _first_min(flat(cost))[..., None]
+        out[:, s:e, 0] = (flat(px).gather(-1, best)[..., 0] - bcx).to(_I32)
+        out[:, s:e, 1] = (flat(py).gather(-1, best)[..., 0] - bcy).to(_I32)
+    return out
+
+
+def qpel_search_plain(cur: torch.Tensor, refs: torch.Tensor,
+                      fv: torch.Tensor):
+    """Quarter-pel refinement of every 8x8 block of the full-res plane.
+
+    cur (H, W) u8; refs (R, H, W) u8; fv (R, n, 2) int32 full-pel vectors.
+    Candidates 0..24: +-2 qpel around 4*fv (dy-major), each interpolated
+    six-tap H then V with clip((x+64)>>7, 0, 255) after each pass, cost
+    dct_cost_8x8 + 32*(|dx|+|dy|), BIG outside [0, 4W-32] x [0, 4H-32];
+    candidate 25: the zero vector, no penalty.  The earliest minimum wins.
+
+    Returns (vec (R, n, 2) int32 qpel, cost (R, n) int32 with the penalty
+    taken back out for a nonzero vector, pred (R, n, 64) u8: the winner's
+    prediction, the luma motion-compensated prediction)."""
+    R, H, W = refs.shape
+    nby, nbx = H // 8, W // 8
+    n = nby * nbx
+    dev = cur.device
+    cy, cx = _block_origins(nby, nbx, dev)
+    taps = T.device_const(SIXTAP_FILTERS, _I32, dev)
+    d = torch.arange(25, device=dev)
+    ddx, ddy = d % 5 - 2, d // 5 - 2
+    pen = torch.cat([(ddx.abs() + ddy.abs()) * PEN,
+                     torch.zeros(1, dtype=torch.long, device=dev)])
+    ridx = torch.arange(R, device=dev)[:, None]
+    zero = torch.zeros((), dtype=torch.long, device=dev)
+    vec = torch.empty((R, n, 2), dtype=_I32, device=dev)
+    cost_out = torch.empty((R, n), dtype=_I32, device=dev)
+    pred_out = torch.empty((R, n, 64), dtype=torch.uint8, device=dev)
+
+    def tap6(a, dim, off, ph):
+        """sum_k taps[ph][k] * a[off + k : off + k + 8] along dim, then
+        clip((x + 64) >> 7, 0, 255)."""
+        t = taps[ph]
+        s = sum(t[k] * a.narrow(dim, off + k, 8) for k in range(6))
+        return ((s + 64) >> 7).clamp(0, 255)
+
+    for s in range(0, n, _CHUNK):
+        e = min(n, s + _CHUNK)
+        bcy, bcx = cy[s:e], cx[s:e]
+        cur_b = _gather(cur[None], zero, bcy, bcx, 8)              # (nb, 8, 8)
+        f = fv[:, s:e].long()
+        # rows/cols -3..+10 around the full-pel base cover every candidate
+        # and its six-tap apron
+        win = _gather(refs, ridx, bcy + f[..., 1] - 3, bcx + f[..., 0] - 3,
+                      14)                                         # (R,nb,14,14)
+        hs = [tap6(win, -1, (dx >> 2) + 1, (dx & 3) * 2)
+              for dx in range(-2, 3)]                             # (R,nb,14,8)
+        preds = [tap6(hs[dx + 2], -2, (dy >> 2) + 1, (dy & 3) * 2)
+                 for dy in range(-2, 3) for dx in range(-2, 3)]
+        preds.append(_gather(refs, ridx, bcy, bcx, 8))            # zero vector
+        preds = torch.stack(preds, dim=2)                         # (R,nb,26,8,8)
+        cost = T.dct_cost_8x8(preds - cur_b[:, None])             # (R, nb, 26)
+        px = torch.cat([(bcx * 4)[:, None] + f[..., 0, None] * 4 + ddx,
+                        (bcx * 4)[None, :, None].expand(R, -1, 1)], dim=-1)
+        py = torch.cat([(bcy * 4)[:, None] + f[..., 1, None] * 4 + ddy,
+                        (bcy * 4)[None, :, None].expand(R, -1, 1)], dim=-1)
+        bad = (px < 0) | (px > W * 4 - 32) | (py < 0) | (py > H * 4 - 32)
+        cost = torch.where(bad, BIG, cost + pen)
+        best = _first_min(cost)[..., None]
+        vx = px.gather(-1, best)[..., 0] - bcx * 4
+        vy = py.gather(-1, best)[..., 0] - bcy * 4
+        bc = cost.gather(-1, best)[..., 0]
+        bc = bc - torch.where((vx != 0) | (vy != 0),
+                              ((vx - f[..., 0] * 4).abs()
+                               + (vy - f[..., 1] * 4).abs()) * PEN, 0)
+        vec[:, s:e, 0] = vx.to(_I32)
+        vec[:, s:e, 1] = vy.to(_I32)
+        cost_out[:, s:e] = bc.to(_I32)
+        pred_out[:, s:e] = preds.flatten(-2).gather(
+            2, best[..., None].expand(-1, -1, 1, 64))[:, :, 0] \
+            .to(torch.uint8)
+    return vec, cost_out, pred_out
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _check_search(name: str, cur, refs, vecs) -> None:
+    for t, what, dt, nd in ((cur, "cur", torch.uint8, 2),
+                            (refs, "refs", torch.uint8, 3),
+                            (vecs, "vectors", _I32, 3)):
+        if t.device != cur.device or t.device.type != "cuda":
+            raise ValueError(f"{name}: {what} must be a CUDA tensor on "
+                             f"{cur.device}, or every input on the CPU")
+        if t.dtype != dt or t.dim() != nd or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be a contiguous {nd}-D "
+                             f"{dt} tensor, got {t.dtype} {tuple(t.shape)}")
+    R, H, W = refs.shape
+    if cur.shape != (H, W) or H < 8 or W < 8 \
+            or vecs.shape != (R, (H // 8) * (W // 8), 2):
+        raise ValueError(f"{name}: shapes cur {tuple(cur.shape)}, refs "
+                         f"{tuple(refs.shape)}, vectors {tuple(vecs.shape)} "
+                         f"do not match")
+
+
+def fullpel_search(cur: torch.Tensor, refs: torch.Tensor, v0: torch.Tensor,
+                   penalty: bool) -> torch.Tensor:
+    """Full-pel search (contract of `fullpel_search_plain`): the
+    csrc/search.cu kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if cur.device.type == "cpu":
+        return fullpel_search_plain(cur, refs, v0, penalty)
+    _check_search("fullpel_search", cur, refs, v0)
+    from vp8oclenc_tpu_torch.ops import cuda_build
+    R, H, W = refs.shape
+    out = torch.empty_like(v0)
+    rc = cuda_build.library("search").vp8_fullpel_search(
+        _ptr(cur), _ptr(refs), _ptr(v0), _ptr(out), R, W, H, int(penalty),
+        ctypes.c_void_p(torch.cuda.current_stream(cur.device).cuda_stream))
+    cuda_build.check(rc, "vp8_fullpel_search")
+    fullpel_search.launches += 1
+    return out
+
+
+fullpel_search.launches = 0
+
+
+def qpel_search(cur: torch.Tensor, refs: torch.Tensor, fv: torch.Tensor):
+    """Quarter-pel search (contract of `qpel_search_plain`): the
+    csrc/search.cu kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if cur.device.type == "cpu":
+        return qpel_search_plain(cur, refs, fv)
+    _check_search("qpel_search", cur, refs, fv)
+    from vp8oclenc_tpu_torch.ops import cuda_build
+    R, n = fv.shape[:2]
+    vec = torch.empty_like(fv)
+    cost = torch.empty((R, n), dtype=_I32, device=cur.device)
+    pred = torch.empty((R, n, 64), dtype=torch.uint8, device=cur.device)
+    H, W = cur.shape
+    rc = cuda_build.library("search").vp8_qpel_search(
+        _ptr(cur), _ptr(refs), _ptr(fv), _ptr(vec), _ptr(cost), _ptr(pred),
+        R, W, H,
+        ctypes.c_void_p(torch.cuda.current_stream(cur.device).cuda_stream))
+    cuda_build.check(rc, "vp8_qpel_search")
+    qpel_search.launches += 1
+    return vec, cost, pred
+
+
+qpel_search.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# hierarchical search
+# ---------------------------------------------------------------------------
+
+def search_level(cur: torch.Tensor, refs: torch.Tensor, src_vec,
+                 pixel_rate: int, penalty: bool) -> torch.Tensor:
+    """One pyramid level: cur (H, W), refs (R, H, W), src_vec (R, nbyc,
+    nbxc, 2) coarser-level vectors in full-res pels or None.  Each block
+    inherits the vector of the coarser block holding (c/2), divided by
+    pixel_rate toward zero.  Returns (R, H//8, W//8, 2) int32 vectors in
+    full-res pels."""
+    H, W = cur.shape
+    R = refs.shape[0]
+    nby, nbx = H // 8, W // 8
+    v0 = inherit_vectors(src_vec, R, nby, nbx, pixel_rate, cur.device)
+    off = fullpel_search(cur, refs, v0, penalty)
+    return (off * pixel_rate).reshape(R, nby, nbx, 2)
+
+
+def inherit_vectors(src_vec, R: int, nby: int, nbx: int, pixel_rate: int,
+                    device) -> torch.Tensor:
+    """(R, nby*nbx, 2) int32 start vectors of a level's blocks in its own
+    pels: the vector of the coarser block holding (c/2), divided by
+    pixel_rate toward zero; zero without a coarser level."""
+    if src_vec is None:
+        return torch.zeros((R, nby * nbx, 2), dtype=_I32, device=device)
+    cy, cx = _block_origins(nby, nbx, device)
+    pby = ((cy // 2) // 8).clamp(max=src_vec.shape[1] - 1)
+    pbx = ((cx // 2) // 8).clamp(max=src_vec.shape[2] - 1)
+    v = src_vec[:, pby, pbx]
+    return (v.sign() * (v.abs() // pixel_rate)).to(_I32).contiguous()
+
+
+def search_qpel(cur: torch.Tensor, refs: torch.Tensor,
+                fullpel_vec: torch.Tensor):
+    """(vectors (R, nby, nbx, 2) qpel, Bdiff (R, nby, nbx), best_pred (R,
+    n, 8, 8) u8) from the full-pel vectors of level 0."""
+    H, W = cur.shape
+    R = refs.shape[0]
+    nby, nbx = H // 8, W // 8
+    vec, cost, pred = qpel_search(
+        cur, refs, fullpel_vec.reshape(R, nby * nbx, 2).contiguous())
+    return (vec.reshape(R, nby, nbx, 2), cost.reshape(R, nby, nbx),
+            pred.reshape(R, nby * nbx, 8, 8))
+
+
+def hierarchical_search(cur_pyr, ref_pyr):
+    """cur_pyr: 5 planes (level l is (H>>l, W>>l)); ref_pyr: 5 stacked (R,
+    H_l, W_l) reference levels.  Levels 4..1 (a level too small for one
+    8x8 block is skipped), level 0 at full pel, then quarter pel."""
+    vec = None
+    for lvl, rate in ((4, 16), (3, 8), (2, 4), (1, 2)):
+        h, w = cur_pyr[lvl].shape
+        if (w // 8) == 0 or (h // 8) == 0:
+            continue
+        vec = search_level(cur_pyr[lvl], ref_pyr[lvl], vec, rate,
+                           penalty=(rate < 4))
+    vec = search_level(cur_pyr[0], ref_pyr[0], vec, 1, penalty=True)
+    return search_qpel(cur_pyr[0], ref_pyr[0], vec)
+
+
+# ---------------------------------------------------------------------------
+# chroma motion compensation
+# ---------------------------------------------------------------------------
+
+def mc_predict_selected_uv(refs_u: torch.Tensor, refs_v: torch.Tensor,
+                           mvs: torch.Tensor, sel: torch.Tensor):
+    """U and V prediction from each MB's selected reference.
+
+    refs_u/refs_v (R, H2, W2) u8; mvs (mbc, 4, 2) quarter vectors in luma
+    qpel, read as 1/8 pel at half resolution; sel (mbc,) reference index.
+    Each 4x4 block takes the vector of its MB quarter and is six-tap
+    interpolated from a 9x9 clamped patch with its own taps (H pass, clip,
+    V pass, clip).  Returns (pred_u, pred_v), int32 (H2, W2)."""
+    R, H2, W2 = refs_u.shape
+    dev = refs_u.device
+    nby, nbx = H2 // 4, W2 // 4
+    b = torch.arange(nby * nbx, device=dev)
+    by, bx = b // nbx, b % nbx
+    mb = (by // 2) * (W2 // 8) + bx // 2
+    v = mvs[mb, (by % 2) * 2 + bx % 2].long()                       # (n, 2)
+    ax = bx * 32 + v[:, 0]
+    ay = by * 32 + v[:, 1]
+    planes = torch.cat([refs_u, refs_v])                            # (2R, ...)
+    s = sel.long()[mb]
+    patch = _gather(planes, torch.stack([s, s + R]), (ay >> 3) - 2,
+                    (ax >> 3) - 2, 9)                               # (2,n,9,9)
+    taps = T.device_const(SIXTAP_FILTERS, _I32, dev)
+    tx = taps[ax & 7][:, None, None, :]                             # (n,1,1,6)
+    ty = taps[ay & 7][:, None, None, :]
+    h = sum(patch[..., k:k + 4] * tx[..., k] for k in range(6))
+    h = ((h + 64) >> 7).clamp(0, 255)                               # (2,n,9,4)
+    p = sum(h[..., k:k + 4, :] * ty[..., k] for k in range(6))
+    p = ((p + 64) >> 7).clamp(0, 255)                               # (2,n,4,4)
+    p = p.reshape(2, nby, nbx, 4, 4).transpose(2, 3).reshape(2, H2, W2)
+    return p[0], p[1]
+
+
+# ---------------------------------------------------------------------------
+# transforms over MB blocks
+# ---------------------------------------------------------------------------
+
+def _mb_blocks_luma(plane, mbw: int, mbh: int):
+    """(H, W) -> (mbc, 16, 4, 4) 4x4 blocks in raster order in each MB."""
+    b = plane.reshape(mbh, 4, 4, mbw, 4, 4)
+    return b.permute(0, 3, 1, 4, 2, 5).reshape(mbh * mbw, 16, 4, 4)
+
+
+def _luma_from_mb_blocks(blocks, mbw: int, mbh: int):
+    b = blocks.reshape(mbh, mbw, 4, 4, 4, 4).permute(0, 2, 4, 1, 3, 5)
+    return b.reshape(mbh * 16, mbw * 16)
+
+
+def _mb_blocks_chroma(plane, mbw: int, mbh: int):
+    b = plane.reshape(mbh, 2, 4, mbw, 2, 4)
+    return b.permute(0, 3, 1, 4, 2, 5).reshape(mbh * mbw, 4, 4, 4)
+
+
+def _chroma_from_mb_blocks(blocks, mbw: int, mbh: int):
+    b = blocks.reshape(mbh, mbw, 2, 2, 4, 4).permute(0, 2, 4, 1, 3, 5)
+    return b.reshape(mbh * 8, mbw * 8)
+
+
+def _blocks8_to_plane(blocks, nby: int, nbx: int):
+    """(n, 8, 8) -> (nby*8, nbx*8) raster plane."""
+    return blocks.reshape(nby, nbx, 8, 8).transpose(1, 2) \
+        .reshape(nby * 8, nbx * 8)
+
+
+def transform_mb_luma(res_blocks, parts, y_dc_q, y_ac_q, y2_dc_q, y2_ac_q):
+    """res_blocks (mbc, 16, 4, 4) residuals; parts (mbc,).  A 16x16 MB
+    (ARE16X16) sends its 16 DCs through Y2 (WHT): its Y blocks quantize DC
+    with 1 and their zigzag DC is zeroed.  Returns (levels (mbc, 16, 16)
+    zigzag, y2 levels (mbc, 16) zigzag, zero for split MBs, reconstructed
+    residual (mbc, 16, 4, 4)), all int32."""
+    mbc = res_blocks.shape[0]
+    coeffs = T.fdct4x4(res_blocks)
+    has_y2 = parts == ARE16X16
+    dc_q_eff = torch.where(has_y2, 1, y_dc_q).to(_I32)[:, None]
+    levels = T.quant4x4(coeffs, dc_q_eff, y_ac_q)
+    dq = T.dequant4x4(levels, dc_q_eff, y_ac_q)
+    y2c = T.fwht4x4(coeffs[:, :, 0, 0].reshape(mbc, 4, 4))
+    y2_levels = T.quant4x4(y2c, y2_dc_q, y2_ac_q)
+    y2_rec_dc = T.iwht4x4(T.dequant4x4(y2_levels, y2_dc_q, y2_ac_q)) \
+        .reshape(mbc, 16)
+    dq[:, :, 0, 0] = torch.where(has_y2[:, None], y2_rec_dc, dq[:, :, 0, 0])
+    rec_res = T.idct4x4(dq)
+    levels_z = T.zigzag(levels)
+    levels_z[:, :, 0] = torch.where(has_y2[:, None], 0, levels_z[:, :, 0])
+    y2_z = torch.where(has_y2[:, None], T.zigzag(y2_levels), 0)
+    return levels_z, y2_z, rec_res
+
+
+def transform_mb_chroma(res_blocks, dc_q, ac_q):
+    """res_blocks (mbc, 4, 4, 4) -> (levels (mbc, 4, 16) zigzag,
+    reconstructed residual (mbc, 4, 4, 4))."""
+    levels = T.quant4x4(T.fdct4x4(res_blocks), dc_q, ac_q)
+    return T.zigzag(levels), T.idct4x4(T.dequant4x4(levels, dc_q, ac_q))
+
+
+# ---------------------------------------------------------------------------
+# the inter frame
+# ---------------------------------------------------------------------------
+
+def inter_body(y, u, v, states, ref_valid, quant):
+    """Whole inter frame with SSIM control off, on one device.
+
+    y (H, W), u/v (H/2, W/2) u8 source planes (MB-aligned); states: three
+    `ref_state` tuples (LAST, GOLDEN, ALTREF; an unused reference may be
+    any valid state); ref_valid: three bools; quant: the LQ segment's
+    (y_dc, y_ac, y2_dc, y2_ac, uv_dc, uv_ac) quantizers.
+
+    Returns (levels_pack (mbc, 25, 16) i16: Y 16 blocks, U 4, V 4, Y2;
+    meta (mbc, 11) i32: segment, partitioning, reference, 4 quarter
+    vectors (x, y); cur_ssim (mbc,) i32; recon y, u, v u8), laid out as
+    the JAX package lays them out."""
+    H, W = y.shape
+    mbw, mbh = W // 16, H // 16
+    mbc = mbw * mbh
+    nby, nbx = H // 8, W // 8
+    dev = y.device
+    ref_pyr = [torch.stack([s[0][lvl] for s in states]) for lvl in range(5)]
+    vecs, diffs, best_pred = hierarchical_search(build_pyramid(y), ref_pyr)
+
+    # reference selection: per MB the sum of its four 8x8 Bdiffs
+    d = diffs.reshape(3, mbh, 2, mbw, 2).sum(dim=(2, 4), dtype=_I32) \
+        .reshape(3, mbc)
+    for r, ok in enumerate(ref_valid):
+        if not ok:
+            d[r].fill_(BIG * 4)      # fill_, not setitem: no host copy
+    ref_sel = torch.where(d[0] <= d[2], 0, 2)
+    ref_sel = torch.where(torch.minimum(d[0], d[2]) <= d[1], ref_sel, 1)
+
+    q = vecs.reshape(3, mbh, 2, mbw, 2, 2).permute(0, 1, 3, 2, 4, 5) \
+        .reshape(3, mbc, 4, 2)
+    mvs = q[ref_sel, torch.arange(mbc, device=dev)]                 # (mbc,4,2)
+    same = (mvs == mvs[:, :1, :]).flatten(1).all(dim=1)
+    parts = torch.where(same, ARE16X16, ARE8X8).to(_I32)
+
+    # luma prediction: each 8x8 block's qpel winner from its MB's reference
+    blk = torch.arange(nby * nbx, device=dev)
+    sel_blk = ref_sel.reshape(mbh, 1, mbw, 1).expand(mbh, 2, mbw, 2) \
+        .reshape(-1)
+    pred_y = _blocks8_to_plane(best_pred[sel_blk, blk], nby, nbx).to(_I32)
+    pred_u, pred_v = mc_predict_selected_uv(
+        torch.stack([s[1] for s in states]),
+        torch.stack([s[2] for s in states]), mvs, ref_sel)
+
+    # one LQ pass (every MB is coded; the SSIM controller's further passes
+    # are not ported)
+    y_dc, y_ac, y2_dc, y2_ac, uv_dc, uv_ac = quant
+    lz, y2z, rr = transform_mb_luma(
+        _mb_blocks_luma(y.to(_I32) - pred_y, mbw, mbh), parts, y_dc, y_ac,
+        y2_dc, y2_ac)
+    uz, ur = transform_mb_chroma(
+        _mb_blocks_chroma(u.to(_I32) - pred_u, mbw, mbh), uv_dc, uv_ac)
+    vz, vr = transform_mb_chroma(
+        _mb_blocks_chroma(v.to(_I32) - pred_v, mbw, mbh), uv_dc, uv_ac)
+    ry = _luma_from_mb_blocks(
+        (_mb_blocks_luma(pred_y, mbw, mbh) + rr).clamp(0, 255), mbw, mbh)
+    ru = _chroma_from_mb_blocks(
+        (_mb_blocks_chroma(pred_u, mbw, mbh) + ur).clamp(0, 255), mbw, mbh)
+    rv = _chroma_from_mb_blocks(
+        (_mb_blocks_chroma(pred_v, mbw, mbh) + vr).clamp(0, 255), mbw, mbh)
+    cur_ssim = mb_ssim_fx(y, ry, u, ru, v, rv)
+
+    levels_pack = torch.cat([lz, uz, vz, y2z[:, None]], dim=1) \
+        .to(torch.int16)
+    meta = torch.cat([torch.full((mbc, 1), LQ_SEGMENT, dtype=_I32,
+                                 device=dev),
+                      parts[:, None], ref_sel.to(_I32)[:, None],
+                      mvs.reshape(mbc, 8).to(_I32)], dim=1)
+    return (levels_pack, meta, cur_ssim, ry.to(torch.uint8),
+            ru.to(torch.uint8).contiguous(), rv.to(torch.uint8).contiguous())

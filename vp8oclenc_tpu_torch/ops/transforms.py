@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from vp8oclenc_tpu_torch.tables import (COSPI8SQRT2MINUS1, COST_C, COST_SHIFT,
+from vp8oclenc_tpu_torch.tables import (COSPI8SQRT2MINUS1, COST_SHIFT,
                                         SINPI8SQRT2, ZIGZAG)
 
 _I32 = torch.int32
@@ -39,11 +39,29 @@ def fdct4x4(block: torch.Tensor) -> torch.Tensor:
                         (d1 * 2217 - c1 * 5352 + 51000) >> 16], dim=-2)
 
 
+_CONSTS: dict = {}
+
+
+def device_const(arr, dtype, device) -> torch.Tensor:
+    """A module-level host table as a tensor on `device`, copied there once.
+    A copy from pageable host memory synchronizes the CUDA stream, so the
+    device path must not make one per call."""
+    key = (id(arr), dtype, torch.device(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.as_tensor(arr, dtype=dtype, device=device)
+    return t
+
+
 def _q_grid(c: torch.Tensor, dc_q, ac_q) -> torch.Tensor:
-    """Per-coefficient quantizer: dc_q at [0, 0], ac_q elsewhere."""
-    q = torch.full(c.shape, int(ac_q), dtype=_I32, device=c.device)
-    q[..., 0, 0] = int(dc_q)
-    return q
+    """Per-coefficient quantizer: dc_q at [0, 0], ac_q elsewhere.  dc_q and
+    ac_q are Python ints or int tensors that broadcast against
+    c.shape[:-2] (per-block quantizers, e.g. (mbc, 1) against
+    (mbc, 16, 4, 4)); ints stay kernel arguments, never device copies."""
+    q = lambda v: v.to(_I32)[..., None, None] \
+        if isinstance(v, torch.Tensor) else int(v)
+    is_dc = torch.arange(16, device=c.device).reshape(4, 4) == 0
+    return torch.where(is_dc, q(dc_q), q(ac_q)).to(_I32).expand(c.shape)
 
 
 def quant4x4(coeffs: torch.Tensor, dc_q, ac_q) -> torch.Tensor:
@@ -83,24 +101,69 @@ def idct4x4(dq: torch.Tensor) -> torch.Tensor:
                         (a1 - d1 + 4) >> 3], dim=-1)
 
 
+def fwht4x4(dcs: torch.Tensor) -> torch.Tensor:
+    """Forward Walsh-Hadamard transform of (..., 4, 4) luma DCs (Y2)."""
+    x = dcs.to(_I32)
+    a = x[..., 0, :] + x[..., 3, :]
+    b = x[..., 1, :] + x[..., 2, :]
+    c = x[..., 1, :] - x[..., 2, :]
+    d = x[..., 0, :] - x[..., 3, :]
+    t = torch.stack([a + b, c + d, a - b, d - c], dim=-2)
+    a = t[..., :, 0] + t[..., :, 3]
+    b = t[..., :, 1] + t[..., :, 2]
+    c = t[..., :, 1] - t[..., :, 2]
+    d = t[..., :, 0] - t[..., :, 3]
+    o = torch.stack([a + b, c + d, a - b, d - c], dim=-1)
+    return (o + (o > 0).to(_I32)) >> 1
+
+
+def iwht4x4(dq: torch.Tensor) -> torch.Tensor:
+    """Inverse Walsh-Hadamard transform of dequantized Y2 coefficients."""
+    x = dq.to(_I32)
+    a = x[..., :, 0] + x[..., :, 3]
+    b = x[..., :, 1] + x[..., :, 2]
+    c = x[..., :, 1] - x[..., :, 2]
+    d = x[..., :, 0] - x[..., :, 3]
+    t = torch.stack([a + b, c + d, a - b, d - c], dim=-1)
+    a = t[..., 0, :] + t[..., 3, :]
+    b = t[..., 1, :] + t[..., 2, :]
+    c = t[..., 1, :] - t[..., 2, :]
+    d = t[..., 0, :] - t[..., 3, :]
+    o = torch.stack([a + b, c + d, a - b, d - c], dim=-2)
+    return (o + 3) >> 3
+
+
 def zigzag(block: torch.Tensor) -> torch.Tensor:
     """(..., 4, 4) raster coefficients -> (..., 16) zigzag scan."""
     flat = block.reshape(*block.shape[:-2], 16)
-    return flat[..., torch.as_tensor(ZIGZAG, dtype=torch.long,
-                                     device=block.device)]
+    return flat[..., device_const(ZIGZAG, torch.long, block.device)]
+
+
+def _cost_c4(x0, x1, x2, x3):
+    """The four rows of tables.COST_C applied to (x0, x1, x2, x3)."""
+    s03, d03, s12, d12 = x0 + x3, x0 - x3, x1 + x2, x1 - x2
+    return (8 * (s03 + s12), 10 * d03 + 4 * d12, 8 * (s03 - s12),
+            4 * d03 - 10 * d12)
 
 
 def dct_weight(residual: torch.Tensor) -> torch.Tensor:
     """Mode cost of (..., 4, 4) residuals -> (...,) int32:
     (|c_dc| + 4 * sum|c_ac|) >> COST_SHIFT with c = C4 . X . C4^T, the
     exact separable form of tables.COST_M16 (|c| < 2^18, the weighted sum
-    < 2^25, so int32 never overflows)."""
+    < 2^25, so int32 never overflows).  Written as butterflies on the rows
+    and columns, so no intermediate is larger than the input."""
     x = residual.to(_I32)
-    C = torch.as_tensor(COST_C, dtype=_I32, device=x.device)
-    # c[i, j] = sum_k sum_l C[i, k] x[k, l] C[j, l]; integer products are
-    # summed explicitly (no matmul: integer matmul is not on every device)
-    t = (C[:, :, None] * x[..., None, :, :]).sum(dim=-2, dtype=_I32)  # C.X
-    c = (t[..., :, None, :] * C[None, :, :]).sum(dim=-1, dtype=_I32)  # .C^T
-    a = c.abs()
-    s = 4 * a.sum(dim=(-2, -1), dtype=_I32) - 3 * a[..., 0, 0]
+    cx = _cost_c4(*(x[..., k, :] for k in range(4)))       # rows of C . X
+    s = 0
+    for i, row in enumerate(cx):
+        for j, c in enumerate(_cost_c4(*(row[..., l] for l in range(4)))):
+            s = s + c.abs() * (1 if i == j == 0 else 4)
     return s >> COST_SHIFT
+
+
+def dct_cost_8x8(residual: torch.Tensor) -> torch.Tensor:
+    """Motion-search cost of (..., 8, 8) residuals -> (...,) int32: the sum
+    of the four 4x4 quadrants' `dct_weight`, each shifted >> COST_SHIFT
+    before the sum (the contract of the JAX package's dct_cost_rows64)."""
+    q = residual.reshape(*residual.shape[:-2], 2, 4, 2, 4).transpose(-3, -2)
+    return dct_weight(q).sum(dim=(-2, -1), dtype=_I32)

@@ -5,9 +5,9 @@ path.
 Reference-frame bookkeeping (golden = key; altref every altref_range),
 key/inter dispatch, the chroma scene-change detector, entropy coding and
 partition assembly are as in the JAX package, so streams are byte-identical
-to it.  Only keyframes are ported: an inter frame raises until the inter
-path lands (ROADMAP.md, Queue 1 item 6), so the encoder runs all-keyframe
-streams (`gop_size=1`).
+to it.  Keyframes and inter frames are ported with SSIM control off (the
+default); a configuration with an SSIM target is refused until the SSIM
+controller is ported (ROADMAP.md, Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -88,6 +88,11 @@ class Encoder:
 
     def __init__(self, cfg: EncoderConfig, width: int, height: int,
                  device=None) -> None:
+        if cfg.ssim_target > 0.0:
+            raise ValueError(
+                f"ssim_target={cfg.ssim_target}: the SSIM controller is not "
+                f"ported to the torch backend yet (ROADMAP.md, Queue 1 item "
+                f"9); encode with SSIM control off")
         self.cfg = cfg
         self.width = width
         self.height = height
@@ -160,12 +165,11 @@ class Encoder:
         fd.device_outputs = dev_out
         return fd
 
-    # ---- inter path: not ported yet ----
+    # ---- inter path ----
     def _encode_inter(self, y, u, v, seg, is_golden, is_altref,
                       yuv_dev=None):
-        raise NotImplementedError(
-            "inter frames are not ported to the torch backend yet "
-            "(ROADMAP.md, Queue 1 item 6); encode with gop_size=1")
+        return self.backend.encode_inter_frame(self, y, u, v, seg, is_golden,
+                                               is_altref, yuv_dev=yuv_dev)
 
     # ---- entropy + assembly ----
     def _finish_frame(self, fd: FrameData, seg: SegmentData) -> bytes:
@@ -209,7 +213,10 @@ class Encoder:
                     partitions.append(pack_bools(p, b))
 
         header = encode_frame_header(fd, seg, cfg, self.width, self.height)
-        self.last_frame_stats = {"is_key": fd.is_key, "replaced": fd.replaced}
+        self.last_frame_stats = {
+            "is_key": fd.is_key, "replaced": fd.replaced,
+            "ssim_min_fx": getattr(fd, "ssim_min_fx", None),
+            "ssim_sum_fx": getattr(fd, "ssim_sum_fx", None)}
 
         out = bytearray(header)
         for part in partitions[:-1]:
