@@ -11,8 +11,12 @@ Phases (any failure exits non-zero before the result line):
      seed at two quantizer pairs; then the full-pel and quarter-pel search
      kernels against theirs on the real pyramid levels 4..0 of two
      contents (a panned canvas searched level by level, and noise searched
-     from random vectors that reach past the frame edges); outputs must be
-     bit-identical; both are timed with CUDA events;
+     from random vectors that reach past the frame edges); then the
+     frozen-neighbour luma trial against its plain version at 8160 MBs, at
+     the AQ, HQ and UQ quantizers of -qmin 50 -qmax 112, on neighbours cut
+     from a keyframe-coded plane and on random sources and neighbours with
+     all-0 and all-255 MBs; outputs must be bit-identical; both are timed
+     with CUDA events;
   4. all-keyframe path: 10 synthetic 1920x1080 frames through
      Encoder.encode_frames with gop_size=1 on cuda, with each kernel's
      launch counter set to 0 before and read after; then the first 2
@@ -24,7 +28,21 @@ Phases (any failure exits non-zero before the result line):
      launched, some vectors nonzero and GOLDEN or ALTREF chosen somewhere;
      the inter device-chain time and the sequential host split; the first 3
      frames again on the CPU, whose bytes must be identical;
-  6. a `kernels` JSON line, the nvidia-smi line, and as the last line
+  6. SSIM-target path: 10 frames of static noise with 200 regions of 32x32
+     that get a fresh smooth gradient every frame, constant chroma, at
+     -qmin 50 -qmax 112 -SSIM-target 98, gop_size=150: at least 8 inter
+     frames, the luma trial kernel launched 3 times per inter frame, some
+     MBs replaced on some frame and never more than a sixth, more than one
+     segment in use, no frame done again as a key; an SSIM-on inter frame
+     dispatched with stream synchronization an error; the inter
+     device-chain time and the host split; the first 3 frames again on the
+     CPU, whose bytes must be identical;
+  7. redo-as-key: 5 smooth 1920x1080 frames whose luma is replaced
+     wholesale at frame 2 while chroma stays constant, at qi 95..127 and
+     ssim_target=0.985 through encode_frames at depth 3, so frames 3 and 4
+     are in flight when frame 2's verdict arrives: at least one redo, the
+     frame comes out as a key, every frame's bytes identical to the CPU's;
+  8. a `kernels` JSON line, the nvidia-smi line, and as the last line
      {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -45,6 +63,10 @@ W, H = 1920, 1080
 QI_PAIRS = (10, 40)           # keyframe quantizer indices held to the plain
 N_FRAMES, N_CPU_FRAMES = 10, 2
 N_CPU_GOP_FRAMES = 3          # 1 keyframe and 2 inter frames
+SSIM_CFG = dict(qi_min=50, qi_max=112, gop_size=150, ssim_target=0.98)
+SSIM_REGIONS = 200            # of 32x32: 800 MBs of 8160, under a sixth
+REDO_CFG = dict(qi_min=95, qi_max=127, gop_size=150, ssim_target=0.985)
+N_REDO_FRAMES, REDO_AT = 5, 2
 
 # integer operations per unit of work, counted from the kernels' arithmetic
 # (each add, multiply, shift, compare, select, abs, clamp and store counts
@@ -119,6 +141,53 @@ def synth_moving(n, seed=0):
                          cut(cu, oy // 2, ox // 2, H // 2, W // 2, 1),
                          cut(cv, oy // 2, ox // 2, H // 2, W // 2, 1)))
     return out
+
+
+def synth_replacement(n, seed=0, w=W, h=H, regions=SSIM_REGIONS):
+    """Content that fires the SSIM controller without tripping the redo: a
+    static noise background (inter predicts it with a zero vector),
+    constant chroma (the scene-change detector watches only U and V), and
+    `regions` cells of a 32x32 grid, chosen once, that get a fresh smooth
+    gradient every frame: inter mispredicts them, the coarse segments
+    cannot repair the residual, and the intra trial reconstructs the ramp
+    with a higher SSIM."""
+    from vp8oclenc_tpu_torch.io.y4m import Frame
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 255, (h, w)).astype(np.uint8)
+    u = np.full((h // 2, w // 2), 120, np.uint8)
+    v = np.full((h // 2, w // 2), 130, np.uint8)
+    gw, gh = w // 32, h // 32
+    cells = rng.choice(gw * gh, size=regions, replace=False)
+    yy, xx = np.mgrid[0:32, 0:32]
+    out = []
+    for _ in range(n):
+        y = base.copy()
+        ab = rng.uniform(-6, 6, (regions, 2))
+        for c, (a, b) in zip(cells, ab):
+            oy, ox = (c // gw) * 32, (c % gw) * 32
+            y[oy:oy + 32, ox:ox + 32] = (128 + a * (xx - 16) + b * (yy - 16)
+                                         ).clip(0, 255).astype(np.uint8)
+        out.append(Frame(y, u.copy(), v.copy()))
+    return out
+
+
+def synth_redo(n, at, seed=0, w=W, h=H):
+    """Constant chroma and a little luma noise over a high-contrast wave;
+    from frame `at` on the luma is a gentle, unrelated pattern, so that
+    frame's inter residual is large everywhere, its coding noise drowns
+    the gentle source (mean SSIM about 0.85), the scene-change detector
+    sees nothing, and the SSIM controller must ask for a keyframe.  The
+    frames before and after it are static and pass."""
+    from vp8oclenc_tpu_torch.io.y4m import Frame
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    a = 128 + 90 * np.cos((xx - 2 * yy) / 9.0)
+    b = 128 + 70 * np.sin(xx / 41.0) * np.cos(yy / 29.0)
+    u = np.full((h // 2, w // 2), 120, np.uint8)
+    v = np.full((h // 2, w // 2), 130, np.uint8)
+    return [Frame(((b if t >= at else a) + rng.integers(-1, 2, (h, w)))
+                  .clip(0, 255).astype(np.uint8), u.copy(), v.copy())
+            for t in range(n)]
 
 
 def cuda_ms(fn, reps: int, warm: int = 1) -> float:
@@ -353,6 +422,62 @@ def phase_search(dev):
     return rows
 
 
+def phase_trial(dev):
+    """The frozen-neighbour luma trial against its plain version at 8160
+    MBs, bit-exact, at the three quantizer pairs the SSIM-target path uses
+    (AQ, HQ, UQ of -qmin 50 -qmax 112).  Input "recon": sources from one
+    synthetic frame, neighbours cut from another's keyframe-coded
+    reconstruction.  Input "random": random sources and neighbours, with
+    all-0 and all-255 MBs."""
+    from vp8oclenc_tpu_torch.config import EncoderConfig
+    from vp8oclenc_tpu_torch.io.y4m import pad_frame
+    from vp8oclenc_tpu_torch.ops import intra as I
+    from vp8oclenc_tpu_torch.ops import intra_replace as IR
+    from vp8oclenc_tpu_torch.pipeline.segments import prepare_segments
+
+    f0, f1 = (pad_frame(f) for f in synth_frames(2, seed=11))
+    Hp, Wp = f0.y.shape
+    mbw, mbh = Wp // 16, Hp // 16
+    mbc = mbw * mbh
+    seg = prepare_segments(EncoderConfig(**SSIM_CFG), f0.y, False, False)
+    recon = I.luma_wavefront(torch.from_numpy(f1.y).to(dev),
+                             int(seg.y_dc_q[3]), int(seg.y_ac_q[3]))[0]
+    rng = np.random.default_rng(13)
+    rnd = lambda *shape: torch.from_numpy(
+        rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+    y_rand = rnd(mbc, 16, 16)
+    y_rand[:64], y_rand[64:128] = 0, 255
+    inputs = {
+        "recon": (IR._plane_mb(torch.from_numpy(f0.y).to(dev), 16)
+                  .contiguous(), *IR._frozen_luma_neighbors(recon, mbw, mbh)),
+        "random": (y_rand, rnd(mbc, 21), rnd(mbc, 16))}
+    nbytes = mbc * (256 + 21 + 16 + 256 * 2 + 16 + 256)
+    bms, by = bound(nbytes, mbc * 16 * OPS_LUMA_BLOCK)
+    row = {"max_abs_err": 0, "ms": [], "plain_ms": [], "bound_ms": [bms],
+           "bound_by": by}
+    for label, (y_mb, ftop, fleft) in inputs.items():
+        for sid in (2, 1, 0):
+            q = (int(seg.y_dc_q[sid]), int(seg.y_ac_q[sid]))
+            k = IR.trial_luma(y_mb, ftop, fleft, *q)
+            p = IR.trial_luma_plain(y_mb, ftop, fleft, *q)
+            err = max_abs_err(k, p)
+            if err != 0:
+                raise AssertionError(f"trial_luma ({label}, q={q}): kernel "
+                                     f"differs from its plain version by "
+                                     f"{err}")
+            ms = cuda_ms(lambda: IR.trial_luma(y_mb, ftop, fleft, *q),
+                         reps=10)
+            pms = cuda_ms(lambda: IR.trial_luma_plain(y_mb, ftop, fleft, *q),
+                          reps=1, warm=0)
+            log(f"  trial_luma {label} segment {sid} q={q} ({mbc} MBs, "
+                f"{len(torch.unique(k[1]))} modes in use): bit-exact, "
+                f"kernel {ms:.4f} ms, plain {pms:.1f} ms, bound {bms:.5f} "
+                f"ms ({by})")
+            row["ms"].append(ms)
+            row["plain_ms"].append(pms)
+    return {"trial_luma": row}
+
+
 def phase_end_to_end(dev):
     from vp8oclenc_tpu_torch.config import EncoderConfig
     from vp8oclenc_tpu_torch.io.y4m import pad_frame
@@ -425,18 +550,7 @@ def phase_end_to_end(dev):
     log("  sequential host split per frame, median of 4 (ms): " + json.dumps(
         {k: round(statistics.median(v), 3) for k, v in split.items()}))
 
-    t1 = time.monotonic()
-    cpu = Encoder(EncoderConfig(**cfg), W, H, device="cpu")
-    ref = list(cpu.encode_frames(frames[:N_CPU_FRAMES]))
-    cpu.close()
-    log(f"  plain CPU encode of {N_CPU_FRAMES} frames: "
-        f"{time.monotonic() - t1:.1f} s")
-    for i, (a, b) in enumerate(zip(out, ref)):
-        if a != b:
-            raise AssertionError(f"frame {i}: card bytes differ from the "
-                                 f"plain CPU bytes")
-    log(f"  first {N_CPU_FRAMES} frames byte-identical to the plain CPU "
-        f"stream")
+    _same_as_cpu("gop-1", cfg, frames[:N_CPU_FRAMES], out)
     return launches
 
 
@@ -540,19 +654,193 @@ def phase_default_gop(dev):
     if refs[GOLDEN] + refs[2] == 0:
         raise AssertionError("neither GOLDEN nor ALTREF was ever selected")
 
+    _same_as_cpu("default-GOP", cfg, frames[:N_CPU_GOP_FRAMES], out)
+    return launches
+
+
+def _counters():
+    from vp8oclenc_tpu_torch.ops import inter as IN
+    from vp8oclenc_tpu_torch.ops import intra as I
+    from vp8oclenc_tpu_torch.ops import intra_replace as IR
+    from vp8oclenc_tpu_torch.ops import loopfilter as LF
+    return {"luma_wavefront": I.luma_wavefront,
+            "chroma_wavefront": I.chroma_wavefront,
+            "loop_filter": LF.filter_planes,
+            "fullpel_search": IN.fullpel_search,
+            "qpel_search": IN.qpel_search,
+            "trial_luma": IR.trial_luma}
+
+
+def _same_as_cpu(what, cfg, frames, out, depth=3):
+    """Encode `frames` again with the plain versions on the CPU and hold
+    the card's bytes against them."""
+    from vp8oclenc_tpu_torch.config import EncoderConfig
+    from vp8oclenc_tpu_torch.pipeline.encoder import Encoder
     t1 = time.monotonic()
     cpu = Encoder(EncoderConfig(**cfg), W, H, device="cpu")
-    ref = list(cpu.encode_frames(frames[:N_CPU_GOP_FRAMES]))
+    ref = list(cpu.encode_frames(frames, depth=depth))
     cpu.close()
-    log(f"  plain CPU encode of {N_CPU_GOP_FRAMES} frames: "
+    log(f"  plain CPU encode of {len(frames)} frames: "
         f"{time.monotonic() - t1:.1f} s")
     for i, (a, b) in enumerate(zip(out, ref)):
         if a != b:
-            raise AssertionError(f"default-GOP frame {i}: card bytes differ "
-                                 f"from the plain CPU bytes")
-    log(f"  first {N_CPU_GOP_FRAMES} frames (1 key, 2 inter) byte-identical "
-        f"to the plain CPU stream")
+            raise AssertionError(f"{what} frame {i}: card bytes differ from "
+                                 f"the plain CPU bytes")
+    log(f"  first {len(ref)} frames byte-identical to the plain CPU stream")
+    return cpu.stats
+
+
+def phase_ssim_target(dev):
+    """The -SSIM-target encode: segment loop, batched intra replacement
+    with the luma trial kernel, speculative redo check (which must not
+    fire on this content)."""
+    from vp8oclenc_tpu_torch.config import EncoderConfig
+    from vp8oclenc_tpu_torch.pipeline.encoder import Encoder, _own_padded
+    from vp8oclenc_tpu_torch.pipeline.segments import prepare_segments
+    from vp8oclenc_tpu_torch.ssim_fx import Q3
+    from vp8oclenc_tpu_torch.tables import ARE4X4
+
+    frames = synth_replacement(N_FRAMES, seed=1)
+    warm = Encoder(EncoderConfig(**SSIM_CFG), W, H, device=dev)
+    list(warm.encode_frames(frames[:2]))          # first-use costs
+    warm.close()
+    torch.cuda.synchronize()
+
+    counters = _counters()
+    enc = Encoder(EncoderConfig(**SSIM_CFG), W, H, device=dev)
+    mbc = enc.mbc
+    for c in counters.values():
+        c.launches = 0
+    stamps, out, replaced, avg = [], [], [], []
+    t0 = time.monotonic()
+    for payload in enc.encode_frames(frames):
+        out.append(payload)
+        stamps.append(time.monotonic())
+        fs = enc.last_frame_stats
+        replaced.append(fs["replaced"])
+        if not fs["is_key"]:
+            avg.append(fs["ssim_sum_fx"] / mbc / Q3)
+    dt = time.monotonic() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    enc.close()
+    if len(out) != N_FRAMES or min(len(p) for p in out) == 0:
+        raise AssertionError("SSIM-target encode produced empty frames")
+    n_inter = sum(p[0] & 1 for p in out)          # frame tag: 1 = inter
+    gaps = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    log(f"  {N_FRAMES} frames {W}x{H} SSIM target 0.98 ({n_inter} inter) in "
+        f"{dt:.3f} s: {N_FRAMES / dt:.3f} fps end to end, median frame "
+        f"interval {statistics.median(gaps):.3f} ms, "
+        f"{sum(map(len, out))} bytes (keyframe {len(out[0])}, inter "
+        f"median {statistics.median(len(p) for p in out[1:])})")
+    log(f"  launches on the SSIM-target path: {json.dumps(launches)}")
+    log(f"  MBs replaced per frame: {replaced} of {mbc} (redo above "
+        f"{mbc // 6}); mean SSIM per inter frame "
+        f"{[round(a, 4) for a in avg]}")
+    if n_inter < 8:
+        raise AssertionError(f"only {n_inter} of {N_FRAMES} frames were "
+                             f"inter frames")
+    st = enc.stats
+    if st.scene_changes_by_ssim + st.scene_changes_by_replaced \
+            + st.scene_changes_by_color:
+        raise AssertionError(f"a frame was done again as a key: {st}")
+    if launches["trial_luma"] != 3 * n_inter:
+        raise AssertionError(f"trial_luma was launched "
+                             f"{launches['trial_luma']} times for {n_inter} "
+                             f"inter frames, not 3 each")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was never launched on the "
+                                 f"SSIM-target path")
+    if max(replaced) <= 0 or max(replaced) > mbc // 6:
+        raise AssertionError(f"replaced MBs per frame {replaced}: none, or "
+                             f"above a sixth of {mbc}")
+
+    # device time of one SSIM-on inter chain (frame pre-uploaded)
+    probe = Encoder(EncoderConfig(**SSIM_CFG), W, H, device=dev)
+    fd, seg = probe._frame_pixels(_own_padded(frames[0]))
+    probe._finalize_fd(fd, seg)
+    p = _own_padded(frames[1])
+    seg = prepare_segments(probe.cfg, p.y, False, False)
+    yuv = probe.backend.upload_frame(p.y, p.u, p.v)
+    inter_ms = [cuda_ms(lambda: probe.backend.encode_inter_frame(
+        probe, p.y, p.u, p.v, seg, False, False, yuv_dev=yuv), reps=1,
+        warm=0) for _ in range(5)]
+    probe.close()
+    log(f"  SSIM-on inter device chain (search, 4 segment passes, 3 trials, "
+        f"merge, filter, next LAST pyramid, D2H), median of 5: "
+        f"{statistics.median(inter_ms):.3f} ms")
+
+    # the host's share, frame by frame without overlap; the frames' data
+    split = {"pad_upload_dispatch": [], "wait_device_d2h": [],
+             "entropy_and_headers": []}
+    seg_hist = np.zeros(4, np.int64)
+    seq = Encoder(EncoderConfig(**SSIM_CFG), W, H, device=dev)
+    for i, f in enumerate(frames[:6]):
+        ta = time.perf_counter()
+        # an inter frame's dispatch must never wait for the card
+        torch.cuda.set_sync_debug_mode("error" if i else "default")
+        fd, seg = seq._frame_pixels(_own_padded(f))
+        torch.cuda.set_sync_debug_mode("default")
+        tb = time.perf_counter()
+        if seq._finalize_fd(fd, seg):
+            raise AssertionError(f"frame {i} asked for a redo")
+        tc = time.perf_counter()
+        seq._finish_frame(fd, seg)
+        td = time.perf_counter()
+        if not fd.is_key:
+            for k, v in zip(split, (tb - ta, tc - tb, td - tc)):
+                split[k].append(v * 1e3)
+            seg_hist += np.bincount(fd.segment_ids, minlength=4)
+            if fd.replaced != replaced[i]:
+                raise AssertionError(f"frame {i}: {fd.replaced} MBs replaced "
+                                     f"sequentially, {replaced[i]} pipelined")
+            if int((fd.parts == ARE4X4).sum()) != fd.replaced \
+                    or (fd.modes[fd.parts != ARE4X4] != 0).any():
+                raise AssertionError(f"frame {i}: B_PRED MBs and modes do "
+                                     f"not match the replaced count")
+    seq.close()
+    log("  sequential host split per SSIM-on inter frame, median of "
+        f"{len(split['entropy_and_headers'])} (ms): " + json.dumps(
+            {k: round(statistics.median(v), 3) for k, v in split.items()}))
+    log(f"  MBs per segment over those frames (UQ, HQ, AQ, LQ): "
+        f"{seg_hist.tolist()}")
+    if (seg_hist > 0).sum() < 2:
+        raise AssertionError("only one segment id among the coded MBs")
+
+    _same_as_cpu("SSIM-target", SSIM_CFG, frames[:N_CPU_GOP_FRAMES], out)
     return launches
+
+
+def phase_redo(dev):
+    """Redo-as-key on the card with successors in flight."""
+    from vp8oclenc_tpu_torch.config import EncoderConfig
+    from vp8oclenc_tpu_torch.pipeline.encoder import Encoder
+
+    frames = synth_redo(N_REDO_FRAMES, REDO_AT, seed=2)
+    counters = _counters()
+    before = {name: c.launches for name, c in counters.items()}
+    enc = Encoder(EncoderConfig(**REDO_CFG), W, H, device=dev)
+    t0 = time.monotonic()
+    out = list(enc.encode_frames(frames, depth=3))
+    dt = time.monotonic() - t0
+    enc.close()
+    st = enc.stats
+    tags = [p[0] & 1 for p in out]
+    log(f"  {N_REDO_FRAMES} frames in {dt:.3f} s, frame tags (1 = inter) "
+        f"{tags}; redone for low SSIM {st.scene_changes_by_ssim}, for "
+        f"replaced MBs {st.scene_changes_by_replaced}; launches "
+        + json.dumps({n: c.launches - before[n]
+                      for n, c in counters.items()}))
+    if st.scene_changes_by_ssim + st.scene_changes_by_replaced < 1:
+        raise AssertionError("no frame was done again as a key")
+    if st.scene_changes_by_color:
+        raise AssertionError("the scene-change detector fired")
+    if tags[REDO_AT] != 0 or tags[REDO_AT - 1] != 1:
+        raise AssertionError(f"frame tags {tags}: frame {REDO_AT} should be "
+                             f"a key after an inter frame")
+    cpu_stats = _same_as_cpu("redo", REDO_CFG, frames, out)
+    if cpu_stats != st:
+        raise AssertionError(f"counters differ: card {st}, CPU {cpu_stats}")
 
 
 def main() -> int:
@@ -583,22 +871,35 @@ def main() -> int:
     rows = phase_kernels(dev)
     log("[kernels] search kernels vs plain versions, 1920x1088 pyramids")
     rows.update(phase_search(dev))
+    log("[kernels] luma trial kernel vs plain version, 8160 MBs")
+    rows.update(phase_trial(dev))
+    log(f"[time] {time.monotonic() - t0:.0f} s")
     log("[end-to-end] Encoder.encode_frames, gop_size=1")
     g1_launches = phase_end_to_end(dev)
+    log(f"[time] {time.monotonic() - t0:.0f} s")
     log("[end-to-end] Encoder.encode_frames, default GOP")
     launches = phase_default_gop(dev)
     log(f"  all-keyframe path launches: {json.dumps(g1_launches)}")
+    log(f"[time] {time.monotonic() - t0:.0f} s")
+    log("[end-to-end] Encoder.encode_frames, SSIM target")
+    launches["trial_luma"] = phase_ssim_target(dev)["trial_luma"]
+    log(f"[time] {time.monotonic() - t0:.0f} s")
+    log("[end-to-end] redo-as-key with frames in flight")
+    phase_redo(dev)
+    log(f"[time] {time.monotonic() - t0:.0f} s")
 
     src = {"luma_wavefront": "vp8oclenc_tpu_torch/csrc/intra.cu",
            "chroma_wavefront": "vp8oclenc_tpu_torch/csrc/intra.cu",
            "loop_filter": "vp8oclenc_tpu_torch/csrc/loopfilter.cu",
            "fullpel_search": "vp8oclenc_tpu_torch/csrc/search.cu",
-           "qpel_search": "vp8oclenc_tpu_torch/csrc/search.cu"}
+           "qpel_search": "vp8oclenc_tpu_torch/csrc/search.cu",
+           "trial_luma": "vp8oclenc_tpu_torch/csrc/intra.cu"}
     replaces = {"luma_wavefront": "vp8oclenc_tpu/ops/pallas_intra.py:309",
                 "chroma_wavefront": "vp8oclenc_tpu/ops/pallas_intra.py:580",
                 "loop_filter": "vp8oclenc_tpu/ops/loopfilter.py:96",
                 "fullpel_search": "vp8oclenc_tpu/ops/pallas_kernels.py:265",
-                "qpel_search": "vp8oclenc_tpu/ops/pallas_kernels.py:396"}
+                "qpel_search": "vp8oclenc_tpu/ops/pallas_kernels.py:396",
+                "trial_luma": "vp8oclenc_tpu/ops/pallas_intra.py:457"}
     kernels = []
     for name, r in rows.items():
         kernels.append({

@@ -14,6 +14,7 @@ from vp8oclenc_tpu_torch.config import EncoderConfig
 from vp8oclenc_tpu_torch.io.y4m import Frame
 from vp8oclenc_tpu_torch.ops import inter as IN
 from vp8oclenc_tpu_torch.ops import intra as I
+from vp8oclenc_tpu_torch.ops import intra_replace as IR
 from vp8oclenc_tpu_torch.ops import loopfilter as LF
 from vp8oclenc_tpu_torch.pipeline.encoder import Encoder
 
@@ -158,4 +159,86 @@ def test_inter_dispatch_never_waits_for_the_card(dev):
         torch.cuda.set_sync_debug_mode("default")
     assert not fd.is_key
     enc.backend.finalize_framedata(fd, seg)
+    enc.close()
+
+
+@pytest.mark.parametrize("size", [(96, 80), (80, 64), (48, 96)])
+@pytest.mark.parametrize("q", [(7, 9), (120, 157)])
+def test_trial_luma_matches_plain(dev, size, q):
+    """Frozen neighbours cut from one plane, sources from another, with
+    all-0 and all-255 MBs."""
+    w, h = size
+    y = _planes(w, h, w + q[0])[0]
+    rec = _planes(w, h, w + q[0] + 1)[0]
+    y[:16, :16], y[:16, 16:32] = 0, 255
+    y_mb = IR._plane_mb(torch.from_numpy(y).to(dev), 16).contiguous()
+    ftop, fleft = IR._frozen_luma_neighbors(torch.from_numpy(rec).to(dev),
+                                            w // 16, h // 16)
+    before = IR.trial_luma.launches
+    k = IR.trial_luma(y_mb, ftop, fleft, *q)
+    assert IR.trial_luma.launches == before + 1
+    p = IR.trial_luma_plain(y_mb, ftop, fleft, *q)
+    torch.cuda.synchronize()
+    assert all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(k, p))
+    assert len(torch.unique(k[1])) > 3
+
+
+def _replacement(w, h, n, seed):
+    """Static noise, constant chroma, and three 32x32 regions that get a
+    fresh smooth gradient every frame: inter prediction fails there and
+    the intra replacement wins."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 255, (h, w)).astype(np.uint8)
+    u = np.full((h // 2, w // 2), 120, np.uint8)
+    v = np.full((h // 2, w // 2), 130, np.uint8)
+    yy, xx = np.mgrid[0:32, 0:32]
+    frames = []
+    for _ in range(n):
+        y = base.copy()
+        for oy, ox in ((16, 32), (48, 0), (32, 64)):
+            a, b = rng.uniform(-6, 6, 2)
+            y[oy:oy + 32, ox:ox + 32] = (128 + a * (xx - 16) + b * (yy - 16)
+                                         ).clip(0, 255).astype(np.uint8)
+        frames.append(Frame(y, u.copy(), v.copy()))
+    return frames
+
+
+SSIM_CFG = dict(qi_min=50, qi_max=112, gop_size=100, ssim_target=0.98,
+                altref_range=100)
+
+
+def test_ssim_stream_card_equals_cpu(dev):
+    w, h = 96, 80
+    frames = _replacement(w, h, 5, seed=7)
+    before = IR.trial_luma.launches
+    gpu = Encoder(EncoderConfig(**SSIM_CFG), w, h, device=dev)
+    a, replaced = [], 0
+    for payload in gpu.encode_frames(frames):
+        a.append(payload)
+        replaced += gpu.last_frame_stats["replaced"]
+    gpu.close()
+    # 1 keyframe, 4 inter frames, three trials each, no redo
+    assert IR.trial_luma.launches == before + 12
+    assert replaced > 0
+    cpu = Encoder(EncoderConfig(**SSIM_CFG), w, h, device="cpu")
+    b = list(cpu.encode_frames(frames))
+    cpu.close()
+    assert a == b
+
+
+def test_ssim_inter_dispatch_never_waits_for_the_card(dev):
+    """The four segment passes, the three trials and the merge run under
+    masks: dispatching an SSIM-on inter frame synchronizes nothing."""
+    from vp8oclenc_tpu_torch.pipeline.encoder import _own_padded
+    frames = _replacement(96, 80, 3, seed=7)
+    enc = Encoder(EncoderConfig(**SSIM_CFG), 96, 80, device=dev)
+    list(enc.encode_frames(frames[:2]))          # key, then warm constants
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fd, seg = enc._frame_pixels(_own_padded(frames[2]))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert not fd.is_key
+    assert enc._finalize_fd(fd, seg) is None
     enc.close()

@@ -1,8 +1,9 @@
 """Streams from the port on the CPU against the JAX package: all-keyframe
-(gop_size=1) and default-GOP (inter frames over LAST, GOLDEN and ALTREF)
-streams byte-identical to its spec and tpu backends, decoding bit-exact
-with its decoder, through the CLI, and across checkpoints taken by the JAX
-encoder at a GOP boundary and inside a GOP."""
+(gop_size=1), default-GOP (inter frames over LAST, GOLDEN and ALTREF) and
+SSIM-target streams (segment loop, intra replacement, redo-as-key)
+byte-identical to its spec and tpu backends, decoding bit-exact with its
+decoder, through the CLI, and across checkpoints taken by the JAX encoder
+at a GOP boundary and inside a GOP."""
 import os
 import subprocess
 import sys
@@ -138,16 +139,161 @@ def test_cli_default_gop_matches_jax_cli(tmp_path):
     assert len(read_ivf(b)[1]) == 4
 
 
-def test_cli_refuses_ssim_target(tmp_path):
-    proc = subprocess.run(
-        [sys.executable, "-m", "vp8oclenc_tpu_torch", "-i", "x.y4m", "-o",
-         str(tmp_path / "o.ivf"), "-device", "cpu", "-SSIM-target", "90"],
-        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
-        text=True, timeout=120)
-    assert proc.returncode != 0
-    assert "ROADMAP.md" in proc.stderr
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        Encoder(EncoderConfig(ssim_target=0.9), 64, 48, device="cpu")
+SSIM_CFG = dict(qi_min=50, qi_max=112, gop_size=100, ssim_target=0.98,
+                altref_range=100)
+
+
+@pytest.fixture(scope="module")
+def ssim_stream():
+    """The replacement sequence of tests/test_tpu_backend.py under an SSIM
+    target, coded by the JAX package's spec backend and, once, by its tpu
+    backend (pipelined)."""
+    from tests.test_tpu_backend import replacement_sequence
+    w, h = 96, 80
+    frames = replacement_sequence(w, h, 5, seed=7)
+    spec = JaxEncoder(JaxConfig(**SSIM_CFG), w, h, backend="spec")
+    want = [spec.encode_frame(f) for f in frames]
+    tpu = JaxEncoder(JaxConfig(**SSIM_CFG), w, h, backend="tpu")
+    assert list(tpu.encode_frames(frames)) == want
+    return w, h, _port_frames(frames), want
+
+
+def test_ssim_stream_matches_jax_and_decodes(ssim_stream):
+    """Segment loop and intra replacement through encode_frame: bytes equal
+    the spec's and the tpu backend's, the stream decodes bit-exact, and
+    the replacement fired."""
+    w, h, frames, want = ssim_stream
+    enc = Encoder(EncoderConfig(**SSIM_CFG), w, h, device="cpu")
+    dec = VP8Decoder()
+    replaced = 0
+    for f, ref in zip(frames, want):
+        payload = enc.encode_frame(f)
+        assert payload == ref
+        out = dec.decode_frame(payload)
+        for got, rec in zip((out.y, out.u, out.v), enc.recon):
+            assert np.array_equal(got, rec)
+        replaced += enc.last_frame_stats["replaced"]
+    enc.close()
+    assert replaced > 0
+    assert enc.stats.scene_changes_by_ssim == 0
+    assert enc.stats.scene_changes_by_replaced == 0
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_ssim_stream_pipelined_matches_jax(ssim_stream, depth):
+    w, h, frames, want = ssim_stream
+    enc = Encoder(EncoderConfig(**SSIM_CFG), w, h, device="cpu")
+    replaced = 0
+    for payload, ref in zip(enc.encode_frames(frames, depth=depth), want):
+        assert payload == ref
+        replaced += enc.last_frame_stats["replaced"]
+    enc.close()
+    assert replaced > 0
+
+
+REDO_CFG = dict(qi_min=95, qi_max=127, gop_size=100, ssim_target=0.99)
+
+
+@pytest.fixture(scope="module")
+def redo_stream():
+    """Luma replaced wholesale from frame to frame while chroma stays
+    constant (no scene-change escape): the SSIM controller rejects those
+    inter frames and they are done again as keyframes.  Frame 3 repeats
+    frame 2, four flat columns, and stays an inter frame between redos."""
+    w, h = 64, 48
+    rng = np.random.default_rng(3)
+    u = np.full((h // 2, w // 2), 120, np.uint8)
+    v = np.full((h // 2, w // 2), 130, np.uint8)
+    frames = [Frame(rng.integers(0, 255, (h, w)).astype(np.uint8),
+                    u.copy(), v.copy()) for _ in range(5)]
+    yy, xx = np.mgrid[0:h, 0:w]
+    cols = (64 + (xx // 16) * 32).astype(np.uint8)
+    frames[2] = Frame(cols, u.copy(), v.copy())
+    frames[3] = Frame(cols.copy(), u.copy(), v.copy())
+    spec = JaxEncoder(JaxConfig(**REDO_CFG), w, h, backend="spec")
+    want = [spec.encode_frame(f) for f in frames]
+    redone = (spec.stats.scene_changes_by_ssim,
+              spec.stats.scene_changes_by_replaced)
+    assert sum(redone) >= 2
+    assert [p[0] & 1 for p in want] == [0, 0, 0, 1, 0]   # frame tag: 1 = inter
+    return w, h, frames, want, redone
+
+
+@pytest.mark.parametrize("depth", [0, 1, 3])
+def test_redo_as_key_matches_spec(redo_stream, depth):
+    """Speculative redo-as-key: sequential (depth 0: encode_frame) and
+    pipelined with successors in flight when the verdict arrives; bytes
+    and counters equal the spec's, and the stream decodes."""
+    w, h, frames, want, redone = redo_stream
+    enc = Encoder(EncoderConfig(**REDO_CFG), w, h, device="cpu")
+    if depth == 0:
+        got = [enc.encode_frame(f) for f in frames]
+    else:
+        got = list(enc.encode_frames(frames, depth=depth))
+    enc.close()
+    assert got == want
+    assert (enc.stats.scene_changes_by_ssim,
+            enc.stats.scene_changes_by_replaced) == redone
+    assert enc.stats.scene_changes_by_color == 0
+    assert enc.frame_number == len(frames)
+    dec = VP8Decoder()
+    for payload in got:
+        dec.decode_frame(payload)
+
+
+def test_cli_ssim_target_matches_jax_cli(tmp_path):
+    """-SSIM-target 98 through both CLIs: the same file, and the same
+    per-frame SSIM lines under -print-info."""
+    from tests.test_tpu_backend import replacement_sequence
+    w, h = 96, 80
+    src = tmp_path / "in.y4m"
+    with open(src, "wb") as fh:
+        wr = Y4MWriter(fh, w, h, 30, 1)
+        for f in replacement_sequence(w, h, 4, seed=7):
+            wr.write_frame(f)
+    env = dict(os.environ, PYTHONPATH=ROOT, JAX_PLATFORMS="cpu")
+    run = lambda *a: subprocess.run([sys.executable, "-m", *a], cwd=ROOT,
+                                    env=env, check=True, capture_output=True,
+                                    text=True, timeout=300).stdout
+    common = ["-qmin", "50", "-qmax", "112", "-SSIM-target", "98",
+              "-print-info"]
+    jax_out = run("vp8oclenc_tpu", "-i", str(src), "-o",
+                  str(tmp_path / "jax.ivf"), "-backend", "spec", *common)
+    port_out = run("vp8oclenc_tpu_torch", "-i", str(src), "-o",
+                   str(tmp_path / "port.ivf"), "-device", "cpu", *common)
+    a = (tmp_path / "jax.ivf").read_bytes()
+    b = (tmp_path / "port.ivf").read_bytes()
+    assert a == b
+    assert len(read_ivf(b)[1]) == 4
+    ssim_lines = lambda out: [ln for ln in out.splitlines()
+                              if "blocks_replaced=" in ln]
+    assert len(ssim_lines(port_out)) == 3
+    # the spec backend knows the scores of an inter frame only as floats of
+    # the same integers: the lines are equal text
+    assert ssim_lines(port_out) == ssim_lines(jax_out)
+    assert [ln for ln in port_out.splitlines() if "scene changes" in ln] \
+        == [ln for ln in jax_out.splitlines() if "scene changes" in ln]
+
+
+def test_cuda_encode_needs_the_native_packer(monkeypatch):
+    """Beside a card the host entropy stage never falls back to the Python
+    tokenizer: a packer that did not build raises.  On the CPU the
+    fallback stays and gives the same bytes."""
+    import torch
+    from vp8oclenc_tpu_torch.native import packer
+    w, h = 64, 48
+    frame = _port_frames(moving_sequence(w, h, 1, seed=2))[0]
+    enc = Encoder(EncoderConfig(**CFG), w, h, device="cpu")
+    want = enc.encode_frame(frame)
+    monkeypatch.setattr(packer, "available", lambda: False)
+    enc = Encoder(EncoderConfig(**CFG), w, h, device="cpu")
+    assert enc.encode_frame(frame) == want
+    enc = Encoder(EncoderConfig(**CFG), w, h, device="cpu")
+    fd, seg = enc._frame_pixels(frame)
+    enc._finalize_fd(fd, seg)
+    monkeypatch.setattr(enc.backend, "device", torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="native entropy packer"):
+        enc._finish_frame(fd, seg)
 
 
 def test_restore_jax_checkpoint_continues_stream():

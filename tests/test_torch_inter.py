@@ -211,55 +211,90 @@ def test_mb_ssim_matches_with_int32_overflow():
         "jax mb_ssim")
 
 
-def _inter_inputs(size, ref_valid):
+SSIM_CFG = dict(qi_min=50, qi_max=112, ssim_target=0.98)
+
+
+def _inter_inputs(size, ssim):
+    """(current frame, stacked reference planes, segments, weak segments).
+    With SSIM on: the replacement sequence of tests/test_tpu_backend.py
+    (static noise, regions with a fresh gradient every frame), whose inter
+    prediction fails in places, with +-12 of noise on the reference luma
+    standing in for coding noise, so that all four segments and the intra
+    replacement are used."""
     w, h = size
-    f = _frames(size, n=5, seed=11)
-    cfg = JaxConfig(qi_min=8, qi_max=30)
+    if ssim:
+        from tests.test_tpu_backend import replacement_sequence
+        f = [pad_frame(g) for g in replacement_sequence(w, h, 5, seed=3)]
+        cfg = JaxConfig(**SSIM_CFG)
+    else:
+        f = _frames(size, n=5, seed=11)
+        cfg = JaxConfig(qi_min=8, qi_max=30)
     seg = prepare_segments(cfg, f[4].y, False, False)
     weak = prepare_segments(cfg, f[4].y, False, False, weaken_filter=True,
                             strength=seg.raw_strength)
     refs = [np.stack([getattr(g, p) for g in f[:3]]) for p in "yuv"]
+    if ssim:
+        rng = np.random.default_rng(3)
+        refs[0] = (refs[0].astype(int) + rng.integers(-12, 13, refs[0].shape)
+                   ).clip(0, 255).astype(np.uint8)
     return f[4], refs, seg, weak
 
 
 @pytest.fixture(scope="module", params=[
-    ((96, 80), (True, True, False)), ((70, 50), (True, False, True))])
+    ((96, 80), (True, True, False), False),
+    ((70, 50), (True, False, True), False),
+    ((96, 80), (True, True, True), True)],
+    ids=["96x80", "70x50", "96x80-ssim"])
 def inter_case(request):
-    """One inter frame through the JAX package's fused inter kernel (SSIM
-    off) and through the port's inter_body, on the same inputs."""
-    size, ref_valid = request.param
-    cur, refs, seg, weak = _inter_inputs(size, ref_valid)
+    """One inter frame through the JAX package's fused inter kernel and
+    through the port's inter_body, on the same inputs, with SSIM control
+    off and on."""
+    size, ref_valid, ssim = request.param
+    cur, refs, seg, weak = _inter_inputs(size, ssim)
     H, W = cur.y.shape
-    q = [jnp.asarray(np.asarray(a, np.int32)) for a in
-         (seg.y_dc_q, seg.y_ac_q, seg.y2_dc_q, seg.y2_ac_q, seg.uv_dc_q,
-          seg.uv_ac_q)]
-    kern = JI.build_inter_kernel(W, H, ssim_enabled=False)
+    segq = (seg.y_dc_q, seg.y_ac_q, seg.y2_dc_q, seg.y2_ac_q, seg.uv_dc_q,
+            seg.uv_ac_q)
+    tfx = TS.target_fx(SSIM_CFG["ssim_target"]) if ssim else -1
+    kern = JI.build_inter_kernel(W, H, ssim_enabled=ssim)
     want = kern(jnp.asarray(cur.y), jnp.asarray(cur.u), jnp.asarray(cur.v),
-                *(jnp.asarray(r) for r in refs), jnp.asarray(ref_valid), *q,
-                jnp.int32(-1))
+                *(jnp.asarray(r) for r in refs), jnp.asarray(ref_valid),
+                *(jnp.asarray(np.asarray(a, np.int32)) for a in segq),
+                jnp.int32(tfx))
     states = [TI.ref_state(*(torch.from_numpy(r[i]) for r in refs))
               for i in range(3)]
-    quant = tuple(int(np.asarray(a)[3]) for a in
-                  (seg.y_dc_q, seg.y_ac_q, seg.y2_dc_q, seg.y2_ac_q,
-                   seg.uv_dc_q, seg.uv_ac_q))
+    quant = tuple([int(x) for x in np.asarray(a)] for a in segq)
     got = TI.inter_body(torch.from_numpy(cur.y), torch.from_numpy(cur.u),
-                        torch.from_numpy(cur.v), states, ref_valid, quant)
+                        torch.from_numpy(cur.v), states, ref_valid, quant,
+                        tfx)
     lf = np.stack([np.stack([s.loop_filter_level, s.mbedge_limit,
                              s.sub_bedge_limit, s.interior_limit,
                              s.hev_threshold]) for s in (seg, weak)]) \
         .astype(np.int32)
-    return got, want, lf, (W // 16, H // 16)
+    return got, want, lf, (W // 16, H // 16), ssim
 
 
 def test_inter_body_matches(inter_case):
-    got, want, _, _ = inter_case
+    got, want, _, (mbw, mbh), ssim = inter_case
     for g, j, what in zip(got, want, ("levels_pack", "meta", "cur_ssim",
                                       "recon_y", "recon_u", "recon_v")):
         _eq(g, j, what)
     assert got[0].dtype == torch.int16 and got[1].dtype == torch.int32
     meta = got[1].numpy()
-    assert (meta[:, 3:] != 0).any()                 # some MBs moved
-    assert (meta[:, 1] == 0).any() and (meta[:, 1] == 1).any()
+    if not ssim:
+        assert got[6] is None and got[7] is None
+        assert (meta[:, 0] == 3).all()              # one LQ pass
+        assert (meta[:, 3:] != 0).any()             # some MBs moved
+        assert (meta[:, 1] == 0).any() and (meta[:, 1] == 1).any()
+        return
+    from vp8oclenc_tpu.ops.wire import unpack_modes4
+    _eq(got[6], unpack_modes4(np.asarray(want[6]), mbw * mbh), "modes")
+    assert got[6].dtype == torch.int8
+    assert int(got[7]) == int(want[7]) > 0          # some MBs were replaced
+    assert len(np.unique(meta[:, 0])) == 4          # every segment used
+    replaced = meta[:, 1] == 2                      # ARE4X4
+    assert replaced.sum() == int(got[7])
+    assert (got[6].numpy()[~replaced] == 0).all()
+    assert (got[0].numpy()[replaced, 24] == 0).all()    # no Y2 there
 
 
 @pytest.mark.parametrize("weaken", [False, True])
@@ -267,8 +302,8 @@ def test_filter_from_meta_matches(inter_case, weaken):
     """Filtered planes and the next LAST's pyramid (the interiors of the
     JAX package's padded levels), with the normal and the weakened
     limits."""
-    got, _, lf, (mbw, mbh) = inter_case
-    levels_pack, meta, cur_ssim, ry, ru, rv = got
+    got, _, lf, (mbw, mbh), _ = inter_case
+    levels_pack, meta, cur_ssim, ry, ru, rv = got[:6]
     if weaken:
         cur_ssim = torch.full_like(cur_ssim, WEAKEN_FX + 1)
     elif int(cur_ssim.min()) > WEAKEN_FX:

@@ -1,15 +1,19 @@
 """Where one 1080p inter frame of the PyTorch/CUDA port spends its time, on
 one NVIDIA GPU, from a torch.profiler trace.
 
-    python3 tools/profile_inter_cuda.py
+    python3 tools/profile_inter_cuda.py [--ssim]
 
 Encodes the keyframe and one inter frame of chip_smoke.py's panned canvas
 (default GOP, qi 10..40) to warm up, then traces 3 more inter frames, each
-dispatched (`Encoder._frame_pixels`), synchronized and finalized.  Prints,
+dispatched (`Encoder._frame_pixels`), synchronized and finalized.  With
+`--ssim` the frames are chip_smoke.py's replacement content under its SSIM
+target (qi 50..112, target 0.98): the segment loop, the three luma trials
+and the replacement merge are in the trace.  Prints,
 per inter frame: device time by kernel name (the top entries and the
 rest), the number of device kernels, the host time of the dispatch and
 the number of kernel launches it made.  The Chrome trace goes to
-chiprun_out/profile_inter_cuda.json.  Exits non-zero without a card or
+chiprun_out/profile_inter_cuda.json (profile_inter_cuda_ssim.json with
+`--ssim`).  Exits non-zero without a card or
 when the trace holds no device time.
 """
 from __future__ import annotations
@@ -30,18 +34,25 @@ def main() -> int:
         print("profile_inter_cuda: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from chip_smoke import nvidia_smi_line, synth_moving, W, H
+    from chip_smoke import (SSIM_CFG, nvidia_smi_line, synth_moving,
+                            synth_replacement, W, H)
     from torch.profiler import ProfilerActivity, profile
     from vp8oclenc_tpu_torch.config import EncoderConfig
     from vp8oclenc_tpu_torch.pipeline.encoder import Encoder, _own_padded
 
+    ssim = "--ssim" in sys.argv[1:]
     print(nvidia_smi_line())
-    frames = synth_moving(2 + N_TRACED, seed=1)
-    enc = Encoder(EncoderConfig(qi_min=10, qi_max=40, gop_size=150,
-                                altref_range=5), W, H, device="cuda")
+    if ssim:
+        frames = synth_replacement(2 + N_TRACED, seed=1)
+        cfg = EncoderConfig(**SSIM_CFG)
+    else:
+        frames = synth_moving(2 + N_TRACED, seed=1)
+        cfg = EncoderConfig(qi_min=10, qi_max=40, gop_size=150,
+                            altref_range=5)
+    enc = Encoder(cfg, W, H, device="cuda")
     for f in frames[:2]:
         fd, seg = enc._frame_pixels(_own_padded(f))
-        enc.backend.finalize_framedata(fd, seg)
+        enc._finalize_fd(fd, seg)
         enc._finish_frame(fd, seg)
     padded = [_own_padded(f) for f in frames[2:]]
     torch.cuda.synchronize()
@@ -54,9 +65,9 @@ def main() -> int:
             fd, seg = enc._frame_pixels(p)
             dispatch_ms.append((time.perf_counter() - t0) * 1e3)
             torch.cuda.synchronize()
-            enc.backend.finalize_framedata(fd, seg)
-            if fd.is_key:
-                raise AssertionError("a traced frame was a keyframe")
+            if enc._finalize_fd(fd, seg) or fd.is_key:
+                raise AssertionError("a traced frame was a keyframe or "
+                                     "asked to be done again as one")
     enc.close()
 
     device, launches = {}, 0
@@ -73,7 +84,8 @@ def main() -> int:
     if total <= 0:
         raise AssertionError("the trace holds no device time")
     rows = sorted(device.items(), key=lambda kv: -kv[1][1])
-    print(f"per inter frame, mean of {N_TRACED} (1920x1088): device time "
+    print(f"per {'SSIM-on ' if ssim else ''}inter frame, mean of "
+          f"{N_TRACED} (1920x1088): device time "
           f"{total / N_TRACED:.3f} ms in "
           f"{sum(c for c, _ in device.values()) / N_TRACED:.1f} device "
           f"kernels and copies; host dispatch "
@@ -89,7 +101,9 @@ def main() -> int:
                       "share": round(rest / total, 4)}))
     out = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out, "profile_inter_cuda.json"))
+    prof.export_chrome_trace(os.path.join(
+        out, "profile_inter_cuda_ssim.json" if ssim
+        else "profile_inter_cuda.json"))
     return 0
 
 

@@ -3,9 +3,9 @@ kernels' plain PyTorch versions on the CPU under `-device cpu`).
 
     python -m vp8oclenc_tpu_torch -i in.y4m -o out.ivf
 
-Keyframes and inter frames are ported with SSIM control off (the
-default); an -SSIM-target above 0 is refused at start-up until the SSIM
-controller is ported."""
+SSIM control is off by default; `-SSIM-target N` (percent) turns on the
+per-MB quantizer segments, the intra replacement and the quality-forced
+keyframes."""
 from __future__ import annotations
 
 import sys
@@ -15,6 +15,7 @@ from vp8oclenc_tpu_torch.config import build_arg_parser, config_from_args
 from vp8oclenc_tpu_torch.io.ivf import IVFWriter
 from vp8oclenc_tpu_torch.io.y4m import Y4MReader, Y4MWriter, crop_frame, Frame
 from vp8oclenc_tpu_torch.pipeline.encoder import Encoder
+from vp8oclenc_tpu_torch.ssim_fx import fx_to_float
 
 
 def main(argv=None) -> int:
@@ -29,10 +30,6 @@ def main(argv=None) -> int:
         for i in range(torch.cuda.device_count()):
             print(f"{i}. cuda: {torch.cuda.get_device_name(i)}")
         return 0
-    if args.ssim_target > 0:
-        parser.error(f"-SSIM-target {args.ssim_target}: the SSIM controller "
-                     f"is not ported to the GPU yet (ROADMAP.md, Queue 1 "
-                     f"item 9); leave SSIM control off")
     cfg = config_from_args(args)
 
     reader = Y4MReader(args.input)
@@ -74,8 +71,15 @@ def main(argv=None) -> int:
                 if cfg.print_info:
                     fps = info.framerate
                     br = total_bytes * fps * 8 // (n + 1) // 1024
-                    print(f"{n}> br={br}k, "
-                          f"frame~{(len(payload) + 512) // 1024}k")
+                    line = (f"{n}> br={br}k, "
+                            f"frame~{(len(payload) + 512) // 1024}k")
+                    fs = enc.last_frame_stats
+                    if fs and fs["ssim_sum_fx"] is not None:
+                        avg = fx_to_float(fs["ssim_sum_fx"] / enc.mbc)
+                        mn = fx_to_float(fs["ssim_min_fx"])
+                        line += (f" avg_SSIM={avg:.4f} min_SSIM={mn:.4f}"
+                                 f" blocks_replaced={fs['replaced']}")
+                    print(line)
             writer.finalize()
             dt = time.monotonic() - t0
             print(f"encoded {writer.frame_count} frames in {dt:.2f}s "

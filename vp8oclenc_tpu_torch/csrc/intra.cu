@@ -1,5 +1,7 @@
-// Keyframe intra wavefronts for Hopper (sm_90a): luma 4x4 B_PRED and chroma
-// TM_PRED, each one kernel launch per frame.
+// Intra kernels for Hopper (sm_90a).  Keyframe wavefronts: luma 4x4 B_PRED
+// and chroma TM_PRED, each one kernel launch per frame.  The SSIM
+// controller's frozen-neighbour luma trial (`trial_luma_kernel`, further
+// down, with its own note) shares their device functions.
 //
 // Replaces the JAX package's Pallas kernels `luma_wavefront`
 // (ops/pallas_intra.py, _build_luma_call) and `chroma_wavefront`
@@ -243,6 +245,32 @@ __device__ __forceinline__ void code_block(const int* res, const int* pred,
   for (int i = 0; i < 16; ++i) rec[i] = clamp255(rr[i] + pred[i]);
 }
 
+// One B_PRED block from its source pixels and neighbours: the earliest of
+// the 10 modes with the least cost, then the winner coded.  The mode loop
+// stays rolled: unrolled, the ten predictors need 255 registers.  Returns
+// the mode; lev gets the raster levels, out the reconstructed pixels.
+__device__ __forceinline__ int search_and_code(const int* src, const int* A,
+                                               const int* L, int P, int dc_q,
+                                               int ac_q, int* lev, int* out) {
+  int best = 0, best_cost = 0;
+#pragma unroll 1
+  for (int m = 0; m < 10; ++m) {
+    int cand[16], res[16];
+    bpred(m, A, L, P, cand);
+    for (int i = 0; i < 16; ++i) res[i] = src[i] - cand[i];
+    int cost = dct_weight(res);
+    if (m == 0 || cost < best_cost) {  // first minimum
+      best_cost = cost;
+      best = m;
+    }
+  }
+  int pred[16], res[16];
+  bpred(best, A, L, P, pred);
+  for (int i = 0; i < 16; ++i) res[i] = src[i] - pred[i];
+  code_block(res, pred, dc_q, ac_q, lev, out);
+  return best;
+}
+
 __device__ void luma_block(const uint8_t* __restrict__ y, uint8_t* rec,
                            int16_t* levels, int8_t* modes, int w4, int bx,
                            int by, int dc_q, int ac_q) {
@@ -275,22 +303,8 @@ __device__ void luma_block(const uint8_t* __restrict__ y, uint8_t* rec,
   for (int r = 0; r < 4; ++r)
     for (int c = 0; c < 4; ++c) src[r * 4 + c] = y[(yy + r) * W + x + c];
 
-  int best = 0, best_cost = 0;
-#pragma unroll 1
-  for (int m = 0; m < 10; ++m) {
-    int pr[16], res[16];
-    bpred(m, A, L, P, pr);
-    for (int i = 0; i < 16; ++i) res[i] = src[i] - pr[i];
-    int cost = dct_weight(res);
-    if (m == 0 || cost < best_cost) {  // first minimum
-      best_cost = cost;
-      best = m;
-    }
-  }
-  int pred[16], res[16], lev[16], out[16];
-  bpred(best, A, L, P, pred);
-  for (int i = 0; i < 16; ++i) res[i] = src[i] - pred[i];
-  code_block(res, pred, dc_q, ac_q, lev, out);
+  int lev[16], out[16];
+  const int best = search_and_code(src, A, L, P, dc_q, ac_q, lev, out);
   for (int r = 0; r < 4; ++r)
     for (int c = 0; c < 4; ++c)
       rec[(yy + r) * W + x + c] = (uint8_t)out[r * 4 + c];
@@ -361,6 +375,78 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
+// Frozen-neighbour luma trial of the SSIM controller: every MB re-coded as
+// B_PRED at one quantizer pair, independent of every other MB.
+//
+// Replaces the JAX package's Pallas kernel `trial_luma`
+// (ops/pallas_intra.py, _build_trial_luma_call); the contract is that of
+// ops/intra_replace.py:trial_luma_plain in this package, bit for bit.
+//
+// What bounds it: operations (16 blocks x 10 predictors per MB, ~38k integer
+// operations against ~1 KB moved per MB), and inside an MB the 16 blocks
+// form a dependent chain.  Design: one thread per MB, 32 MBs per CTA, so
+// 1080p is 255 CTAs spread over the SMs.  A block's neighbours outside the
+// MB come from the frozen row `ftop` = [P, A0..A19] and column `fleft`,
+// never from another MB's result; neighbours inside the MB come from the
+// MB's own trial reconstruction, kept in shared memory with the 32 MBs'
+// bytes of one pixel adjacent (no bank conflicts).  The border values are
+// made by the caller.  Levels, modes and reconstruction go straight into
+// their final layouts.
+constexpr int kTrialThreads = 32;
+
+__global__ void __launch_bounds__(kTrialThreads)
+    trial_luma_kernel(const uint8_t* __restrict__ y_mb,
+                      const uint8_t* __restrict__ ftop,
+                      const uint8_t* __restrict__ fleft,
+                      int16_t* __restrict__ levels, int8_t* __restrict__ modes,
+                      uint8_t* __restrict__ rec, int mbc, int dc_q, int ac_q) {
+  __shared__ uint8_t trial[256 * kTrialThreads];
+  const int mb = blockIdx.x * kTrialThreads + threadIdx.x;
+  if (mb >= mbc) return;
+  uint8_t* mine = trial + threadIdx.x;        // pixel (r, c) at (r*16+c)*32
+  const uint8_t* src_mb = y_mb + (size_t)mb * 256;
+  const uint8_t* top = ftop + (size_t)mb * 21;
+  const uint8_t* left = fleft + (size_t)mb * 16;
+#pragma unroll 1
+  for (int b = 0; b < 16; ++b) {
+    const int r0 = (b >> 2) * 4, c0 = (b & 3) * 4;
+    int A[8], L[4], P;
+    if (r0 == 0) {
+      for (int j = 0; j < 8; ++j) A[j] = top[1 + c0 + j];
+      P = top[c0];
+    } else {
+      const uint8_t* above = mine + ((r0 - 1) * 16) * kTrialThreads;
+      for (int j = 0; j < 4; ++j) A[j] = above[(c0 + j) * kTrialThreads];
+      if (c0 < 12) {
+        for (int j = 0; j < 4; ++j)
+          A[4 + j] = above[(c0 + 4 + j) * kTrialThreads];
+      } else {  // the row above the MB, as on a keyframe
+        for (int j = 0; j < 4; ++j) A[4 + j] = top[17 + j];
+      }
+      P = c0 == 0 ? left[r0 - 1] : above[(c0 - 1) * kTrialThreads];
+    }
+    for (int r = 0; r < 4; ++r)
+      L[r] = c0 == 0 ? left[r0 + r]
+                     : mine[((r0 + r) * 16 + c0 - 1) * kTrialThreads];
+
+    int src[16];
+    for (int r = 0; r < 4; ++r)
+      for (int c = 0; c < 4; ++c) src[r * 4 + c] = src_mb[(r0 + r) * 16 + c0 + c];
+
+    int lev[16], out[16];
+    const int best = search_and_code(src, A, L, P, dc_q, ac_q, lev, out);
+    uint8_t* rec_mb = rec + (size_t)mb * 256;
+    for (int r = 0; r < 4; ++r)
+      for (int c = 0; c < 4; ++c) {
+        mine[((r0 + r) * 16 + c0 + c) * kTrialThreads] = (uint8_t)out[r * 4 + c];
+        rec_mb[(r0 + r) * 16 + c0 + c] = (uint8_t)out[r * 4 + c];
+      }
+    int16_t* lz = levels + ((size_t)mb * 16 + b) * 16;
+    for (int i = 0; i < 16; ++i) lz[kInvZigzag[i]] = (int16_t)lev[i];
+    modes[(size_t)mb * 16 + b] = (int8_t)best;
+  }
+}
+
 int threads_for(int n, int most) {
   int t = (n + 31) / 32 * 32;
   return t > most ? most : t;
@@ -385,5 +471,17 @@ extern "C" int vp8_chroma_wavefront(const void* uv, void* recon, void* levels,
                             (cudaStream_t)stream>>>(
       (const uint8_t*)uv, (uint8_t*)recon, (int16_t*)levels, mbw, mbh, dc_q,
       ac_q);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vp8_trial_luma(const void* y_mb, const void* ftop,
+                              const void* fleft, void* levels, void* modes,
+                              void* rec, int mbc, int dc_q, int ac_q,
+                              void* stream) {
+  if (mbc <= 0) return (int)cudaErrorInvalidValue;
+  trial_luma_kernel<<<(mbc + kTrialThreads - 1) / kTrialThreads,
+                      kTrialThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)y_mb, (const uint8_t*)ftop, (const uint8_t*)fleft,
+      (int16_t*)levels, (int8_t*)modes, (uint8_t*)rec, mbc, dc_q, ac_q);
   return (int)cudaGetLastError();
 }

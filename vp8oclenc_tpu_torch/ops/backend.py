@@ -2,15 +2,17 @@
 chains (the counterpart of the JAX package's ops/backend.py TPUBackend).
 
 Keyframe chain: H2D of the frame, the luma and chroma intra wavefront
-kernels, the loop-filter kernel.  Inter chain (SSIM control off): H2D, the
-inter body (pyramid, full-pel and quarter-pel search kernels, reference
-selection, chroma MC, one LQ pass, per-MB SSIM), then the loop filter fed
-from the body's outputs, with the inner-edge mask and the weakened limits
-chosen on the device.  Each chain ends with an asynchronous D2H of what
-the host entropy stage needs into pinned host buffers with a CUDA event
-recorded behind it; `finalize_framedata` waits on that event only when the
-host needs the frame, so the host codes frame N while the card runs frame
-N+1.  The post-filter planes stay on the device as the LAST/GOLDEN/ALTREF
+kernels, the loop-filter kernel.  Inter chain: H2D, the inter body
+(pyramid, full-pel and quarter-pel search kernels, reference selection,
+chroma MC, the LQ pass and per-MB SSIM; under an SSIM target also the
+AQ/HQ/UQ passes and the batched intra replacement with the luma trial
+kernel), then the loop filter fed from the body's outputs, with the
+inner-edge mask and the weakened limits chosen on the device.  Each chain
+ends with an asynchronous D2H of what the host entropy stage needs into
+pinned host buffers with a CUDA event recorded behind it;
+`finalize_framedata` waits on that event only when the host needs the
+frame, so the host codes frame N while the card runs frame N+1.  The
+post-filter planes stay on the device as the LAST/GOLDEN/ALTREF
 references, each with its search state (5-level pyramid and chroma planes,
 ops/inter.ref_state), built once when the frame becomes a reference.
 """
@@ -20,10 +22,9 @@ import numpy as np
 import torch
 
 from vp8oclenc_tpu_torch.config import EncoderConfig
-from vp8oclenc_tpu_torch.ssim_fx import Q3, WEAKEN_FX
+from vp8oclenc_tpu_torch.ssim_fx import Q3, WEAKEN_FX, target_fx
 from vp8oclenc_tpu_torch.tables import (ALTREF, ARE4X4, ARE16X16, GOLDEN,
-                                        INTRA_SEGMENT, LAST, LQ_SEGMENT,
-                                        SEGMENT_COUNT)
+                                        INTRA_SEGMENT, LAST, SEGMENT_COUNT)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -135,9 +136,10 @@ class TorchBackend:
     # -------------------------------------------------- inter
     def encode_inter_frame(self, enc, y, u, v, seg, is_golden, is_altref,
                            yuv_dev=None):
-        """Dispatch one inter frame's chain (SSIM control off); returns the
-        FrameData with its levels and metadata still on their way to the
-        host.  A reference the frame may not use (GOLDEN right after a
+        """Dispatch one inter frame's chain; returns the FrameData with
+        its levels and metadata (under an SSIM target also the B_PRED modes
+        and the count of replaced MBs) still on their way to the host.  A
+        reference the frame may not use (GOLDEN right after a
         golden frame, ALTREF right after an altref or while it equals
         GOLDEN) is stood in for by LAST's state and marked invalid."""
         from vp8oclenc_tpu_torch.ops.inter import inter_body
@@ -156,12 +158,14 @@ class TorchBackend:
         if yuv_dev is None:
             yuv_dev = self.upload_frame(y, u, v)
         yd, ud, vd = self._split_yuv(yuv_dev)
-        sid = LQ_SEGMENT
-        quant = tuple(int(q[sid]) for q in (
+        quant = tuple([int(x) for x in q] for q in (
             seg.y_dc_q, seg.y_ac_q, seg.y2_dc_q, seg.y2_ac_q, seg.uv_dc_q,
             seg.uv_ac_q))
-        levels_pack, meta, cur_ssim, ry, ru, rv = inter_body(
-            yd, ud, vd, (ls, gs, als), (True, use_golden, use_altref), quant)
+        ssim_on = self.cfg.ssim_target > 0.0
+        levels_pack, meta, cur_ssim, ry, ru, rv, modes, replaced = \
+            inter_body(yd, ud, vd, (ls, gs, als),
+                       (True, use_golden, use_altref), quant,
+                       target_fx(self.cfg.ssim_target) if ssim_on else -1)
 
         # the loop filter runs on the device outputs; the weakened limits
         # are selected there when min SSIM > WEAKEN_FX
@@ -179,7 +183,9 @@ class TorchBackend:
             is_altref=is_altref, levels=None, parts=None, segment_ids=None,
             modes=np.zeros((mbc, 16), dtype=np.int8),
             is_inter=None, ref_frame=None, mvs=None)
-        fd.device_outputs = self._to_host(levels_pack, meta, cur_ssim)
+        fd.device_outputs = self._to_host(
+            levels_pack, meta, cur_ssim,
+            *((modes, replaced) if ssim_on else ()))
         fd.weak_seg = weak
         enc.recon = PendingRecon(filtered)
         return fd
@@ -198,8 +204,12 @@ class TorchBackend:
         modes for a keyframe; levels, segment ids, partitionings,
         references, vectors and the SSIM statistics for an inter frame,
         whose header takes the weakened filter when min SSIM > WEAKEN_FX
-        (the device chose the same limits).  Returns None: with SSIM
-        control off no frame asks for a redo."""
+        (the device chose the same limits), and under an SSIM target the
+        B_PRED modes and the count of replaced MBs.  Returns None, or
+        "ssim" / "replaced" when the SSIM controller asks for the frame to
+        be done again as a keyframe (mean SSIM below the target, or more
+        than a sixth of the MBs replaced): the caller then rolls back to
+        its snapshot from before the frame."""
         outs = getattr(fd, "device_outputs", None)
         if outs is None:
             return None
@@ -221,6 +231,13 @@ class TorchBackend:
         fd.ssim_min_fx = int(cur_ssim.min())
         fd.ssim_sum_fx = int(np.maximum(cur_ssim, -Q3)
                              .astype(np.int64).sum())
+        if len(outs) > 4:
+            fd.modes = outs[4].numpy()
+            fd.replaced = int(outs[5])
+            if fd.ssim_sum_fx < target_fx(self.cfg.ssim_target) * self.mbc:
+                return "ssim"
+            if fd.replaced > self.mbc // 6:
+                return "replaced"
         if fd.ssim_min_fx > WEAKEN_FX:
             seg.__dict__.update(fd.weak_seg.__dict__)
         return None

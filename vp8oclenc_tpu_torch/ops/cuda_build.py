@@ -28,6 +28,7 @@ _SIGNATURES = {
     "intra": {
         "vp8_luma_wavefront": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "vp8_chroma_wavefront": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "vp8_trial_luma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "loopfilter": {
         "vp8_loop_filter": [_P, _P, _P, _P, _P, _P, _I, _I, _P],

@@ -1,14 +1,15 @@
-"""Inter-frame (P-frame) pixel path with SSIM control off: the PyTorch
-counterpart of the JAX package's ops/inter.py body (`build_inter_kernel`
-with ssim_enabled=False).
+"""Inter-frame (P-frame) pixel path: the PyTorch counterpart of the JAX
+package's ops/inter.py body (`build_inter_kernel`).
 
 Per frame: the current 5-level pyramid, the hierarchical full-pel search
 over LAST, GOLDEN and ALTREF at once (levels 4..0), the quarter-pel
 refinement with the luma prediction kept from the winning candidate,
 reference selection (LAST <= ALTREF <= GOLDEN on ties), 8x8 -> 16x16
-packing, the chroma six-tap motion compensation, one LQ transform pass
-with Y2/WHT, and the per-MB integer SSIM that feeds the loop filter's
-weaken rule.
+packing, the chroma six-tap motion compensation, the transform passes
+with Y2/WHT (one LQ pass with SSIM control off; with it on, four passes
+LQ -> UQ over the MBs still below the target, then the batched intra
+replacement of ops/intra_replace.py), and the per-MB integer SSIM that
+steers those passes and feeds the loop filter's weaken rule.
 
 Reference state is one tuple per reference: its 5-level pyramid (level 0
 is the post-filter luma plane itself) and its chroma planes, built once
@@ -34,8 +35,8 @@ import torch
 
 from vp8oclenc_tpu_torch.ops import transforms as T
 from vp8oclenc_tpu_torch.ssim_fx import mb_ssim_fx
-from vp8oclenc_tpu_torch.tables import (ARE8X8, ARE16X16, LQ_SEGMENT,
-                                        SIXTAP_FILTERS)
+from vp8oclenc_tpu_torch.tables import (ARE4X4, ARE8X8, ARE16X16,
+                                        LQ_SEGMENT, SIXTAP_FILTERS)
 
 _I32 = torch.int32
 VECTOR_DIFF_WEIGHT = 64
@@ -456,18 +457,29 @@ def transform_mb_chroma(res_blocks, dc_q, ac_q):
 # the inter frame
 # ---------------------------------------------------------------------------
 
-def inter_body(y, u, v, states, ref_valid, quant):
-    """Whole inter frame with SSIM control off, on one device.
+def inter_body(y, u, v, states, ref_valid, quant, ssim_target: int = -1):
+    """Whole inter frame on one device.
 
     y (H, W), u/v (H/2, W/2) u8 source planes (MB-aligned); states: three
     `ref_state` tuples (LAST, GOLDEN, ALTREF; an unused reference may be
-    any valid state); ref_valid: three bools; quant: the LQ segment's
-    (y_dc, y_ac, y2_dc, y2_ac, uv_dc, uv_ac) quantizers.
+    any valid state); ref_valid: three bools; quant: the per-segment
+    quantizers (y_dc, y_ac, y2_dc, y2_ac, uv_dc, uv_ac), each indexed by
+    segment id and holding host ints; ssim_target: the 3-plane Q15 SSIM
+    threshold, or -1 with SSIM control off.
+
+    With SSIM control off every MB is coded once, in the LQ segment.  With
+    it on, four passes LQ -> AQ -> HQ -> UQ re-code, each at its segment's
+    quantizers, the MBs whose SSIM is still at or below the target (all
+    four run under per-MB masks: nothing waits for the host), and then the
+    batched intra replacement (ops/intra_replace.py) turns the MBs it
+    applies into B_PRED MBs.
 
     Returns (levels_pack (mbc, 25, 16) i16: Y 16 blocks, U 4, V 4, Y2;
     meta (mbc, 11) i32: segment, partitioning, reference, 4 quarter
-    vectors (x, y); cur_ssim (mbc,) i32; recon y, u, v u8), laid out as
-    the JAX package lays them out."""
+    vectors (x, y); cur_ssim (mbc,) i32; recon y, u, v u8; modes (mbc, 16)
+    i8: the B_PRED modes of replaced MBs, zero elsewhere; replaced: 0-d i32
+    count of replaced MBs), laid out as the JAX package lays them out;
+    modes and replaced are None with SSIM control off."""
     H, W = y.shape
     mbw, mbh = W // 16, H // 16
     mbc = mbw * mbh
@@ -500,29 +512,76 @@ def inter_body(y, u, v, states, ref_valid, quant):
         torch.stack([s[1] for s in states]),
         torch.stack([s[2] for s in states]), mvs, ref_sel)
 
-    # one LQ pass (every MB is coded; the SSIM controller's further passes
-    # are not ported)
-    y_dc, y_ac, y2_dc, y2_ac, uv_dc, uv_ac = quant
-    lz, y2z, rr = transform_mb_luma(
-        _mb_blocks_luma(y.to(_I32) - pred_y, mbw, mbh), parts, y_dc, y_ac,
-        y2_dc, y2_ac)
-    uz, ur = transform_mb_chroma(
-        _mb_blocks_chroma(u.to(_I32) - pred_u, mbw, mbh), uv_dc, uv_ac)
-    vz, vr = transform_mb_chroma(
-        _mb_blocks_chroma(v.to(_I32) - pred_v, mbw, mbh), uv_dc, uv_ac)
-    ry = _luma_from_mb_blocks(
-        (_mb_blocks_luma(pred_y, mbw, mbh) + rr).clamp(0, 255), mbw, mbh)
-    ru = _chroma_from_mb_blocks(
-        (_mb_blocks_chroma(pred_u, mbw, mbh) + ur).clamp(0, 255), mbw, mbh)
-    rv = _chroma_from_mb_blocks(
-        (_mb_blocks_chroma(pred_v, mbw, mbh) + vr).clamp(0, 255), mbw, mbh)
-    cur_ssim = mb_ssim_fx(y, ry, u, ru, v, rv)
+    res_y = _mb_blocks_luma(y.to(_I32) - pred_y, mbw, mbh)
+    res_u = _mb_blocks_chroma(u.to(_I32) - pred_u, mbw, mbh)
+    res_v = _mb_blocks_chroma(v.to(_I32) - pred_v, mbw, mbh)
+    pred_y_b = _mb_blocks_luma(pred_y, mbw, mbh)
+    pred_u_b = _mb_blocks_chroma(pred_u, mbw, mbh)
+    pred_v_b = _mb_blocks_chroma(pred_v, mbw, mbh)
 
-    levels_pack = torch.cat([lz, uz, vz, y2z[:, None]], dim=1) \
-        .to(torch.int16)
-    meta = torch.cat([torch.full((mbc, 1), LQ_SEGMENT, dtype=_I32,
-                                 device=dev),
-                      parts[:, None], ref_sel.to(_I32)[:, None],
+    def planes(yb, ub, vb):
+        return (_luma_from_mb_blocks(yb, mbw, mbh),
+                _chroma_from_mb_blocks(ub, mbw, mbh),
+                _chroma_from_mb_blocks(vb, mbw, mbh))
+
+    # progressive segment requantization LQ -> UQ.  st: levels y, y2, u, v,
+    # recon blocks y, u, v.  Every MB is active in the first pass (nothing
+    # is coded yet), so it needs no mask.
+    y_dc, y_ac, y2_dc, y2_ac, uv_dc, uv_ac = quant
+    ssim_on = ssim_target >= 0
+    for i in range(4 if ssim_on else 1):
+        sid = LQ_SEGMENT - i
+        lz, y2z, rr = transform_mb_luma(
+            res_y, parts, int(y_dc[sid]), int(y_ac[sid]), int(y2_dc[sid]),
+            int(y2_ac[sid]))
+        uz, ur = transform_mb_chroma(res_u, int(uv_dc[sid]), int(uv_ac[sid]))
+        vz, vr = transform_mb_chroma(res_v, int(uv_dc[sid]), int(uv_ac[sid]))
+        new = [lz, y2z, uz, vz, (pred_y_b + rr).clamp(0, 255),
+               (pred_u_b + ur).clamp(0, 255), (pred_v_b + vr).clamp(0, 255)]
+        if i == 0:
+            st = new
+            seg_ids = torch.full((mbc,), LQ_SEGMENT, dtype=_I32, device=dev)
+        else:
+            active = cur_ssim <= ssim_target     # taken before the pass
+            st = [torch.where(active.reshape(-1, *([1] * (n.dim() - 1))),
+                              n, s) for n, s in zip(new, st)]
+            seg_ids = torch.where(active, sid, seg_ids).to(_I32)
+        ry, ru, rv = planes(*st[4:])
+        new_ssim = mb_ssim_fx(y, ry, u, ru, v, rv)
+        cur_ssim = new_ssim if i == 0 \
+            else torch.where(active, new_ssim, cur_ssim)
+    levels_y, levels_y2, levels_u, levels_v, rec_y_b, rec_u_b, rec_v_b = st
+    ry, ru, rv = (p.to(torch.uint8).contiguous() for p in (ry, ru, rv))
+
+    modes = replaced = None
+    if ssim_on:
+        from vp8oclenc_tpu_torch.ops.intra_replace import (
+            intra_replace_device, mb_patches_to_chroma_blocks,
+            mb_patches_to_luma_blocks)
+        (applied, b_sid, b_modes, b_lv_y, b_lv_u, b_lv_v, b_ry, b_ru, b_rv,
+         cur_ssim) = intra_replace_device(
+            y, u, v, ry, ru, rv, cur_ssim, y_dc, y_ac, uv_dc, uv_ac,
+            ssim_target, mbw, mbh)
+        a1 = applied[:, None]
+        a2 = applied[:, None, None]
+        a3 = applied[:, None, None, None]
+        seg_ids = torch.where(applied, b_sid, seg_ids)
+        parts = torch.where(applied, ARE4X4, parts).to(_I32)
+        levels_y = torch.where(a2, b_lv_y, levels_y)
+        levels_y2 = torch.where(a1, 0, levels_y2)
+        levels_u = torch.where(a2, b_lv_u, levels_u)
+        levels_v = torch.where(a2, b_lv_v, levels_v)
+        rec_y_b = torch.where(a3, mb_patches_to_luma_blocks(b_ry), rec_y_b)
+        rec_u_b = torch.where(a3, mb_patches_to_chroma_blocks(b_ru), rec_u_b)
+        rec_v_b = torch.where(a3, mb_patches_to_chroma_blocks(b_rv), rec_v_b)
+        ry, ru, rv = (p.to(torch.uint8).contiguous()
+                      for p in planes(rec_y_b, rec_u_b, rec_v_b))
+        replaced = applied.sum(dtype=_I32)
+        modes = torch.where(a1, b_modes, 0).to(torch.int8)
+
+    levels_pack = torch.cat([levels_y, levels_u, levels_v,
+                             levels_y2[:, None]], dim=1).to(torch.int16)
+    meta = torch.cat([seg_ids[:, None], parts[:, None],
+                      ref_sel.to(_I32)[:, None],
                       mvs.reshape(mbc, 8).to(_I32)], dim=1)
-    return (levels_pack, meta, cur_ssim, ry.to(torch.uint8),
-            ru.to(torch.uint8).contiguous(), rv.to(torch.uint8).contiguous())
+    return levels_pack, meta, cur_ssim, ry, ru, rv, modes, replaced

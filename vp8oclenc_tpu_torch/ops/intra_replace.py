@@ -1,0 +1,262 @@
+"""Batched SSIM intra replacement: the PyTorch counterpart of the JAX
+package's ops/intra_replace.py.
+
+After the segment loop of an inter frame, every MB whose SSIM is still at
+or below the target is tried as an intra MB (4x4 B_PRED luma, TM_PRED
+chroma) at the AQ, HQ and UQ quantizers.  Every trial predicts from the
+FROZEN pre-replacement reconstruction, and a winner is applied only when
+none of the four neighbour MBs that feed its prediction (left, above-left,
+above, above-right) also won.  That makes all trials independent, so one
+trial is one batched step over all MBs:
+
+  * the frozen neighbour rows and columns of every MB are cut from the
+    planes at once (`_frozen_luma_neighbors`, `_frozen_chroma_neighbors`),
+    border rules applied (127 above the frame, 129 left of it);
+  * the luma trial walks the 16 blocks of an MB in raster order, each block
+    reading the MB's own trial reconstruction for in-MB neighbours;
+  * the trials run AQ -> HQ -> UQ under per-MB masks; nothing on this path
+    waits for the host.
+
+The luma trial has two versions with one contract:
+  * `trial_luma_plain`: plain PyTorch on any device, the reference the
+    CUDA kernel is held against;
+  * `trial_luma`: for CUDA tensors it launches the hand-written kernel of
+    csrc/intra.cu, for CPU tensors it takes the plain version.
+The chroma trial and the controller around them are plain PyTorch.
+
+Row-sharded frames (a ghost row and winner flags from the shard above)
+belong to the multi-GPU layer and are not ported yet.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vp8oclenc_tpu_torch.ops import transforms as T
+from vp8oclenc_tpu_torch.ops.intra import _first_min
+from vp8oclenc_tpu_torch.ops.predict import bpred_all_modes, tm_predict_8x8
+from vp8oclenc_tpu_torch.ssim_fx import mb_ssim_fx_16x16
+
+_I32 = torch.int32
+_U8 = torch.uint8
+
+
+def _plane_mb(plane: torch.Tensor, size: int) -> torch.Tensor:
+    """(H, W) -> (mbc, size, size) per-MB patches, the plane's dtype."""
+    H, W = plane.shape
+    b = plane.reshape(H // size, size, W // size, size)
+    return b.transpose(1, 2).reshape(-1, size, size)
+
+
+def mb_patches_to_luma_blocks(p: torch.Tensor) -> torch.Tensor:
+    """(mbc, 16, 16) -> (mbc, 16, 4, 4) in-MB block raster order."""
+    mbc = p.shape[0]
+    return p.reshape(mbc, 4, 4, 4, 4).permute(0, 1, 3, 2, 4) \
+        .reshape(mbc, 16, 4, 4)
+
+
+def mb_patches_to_chroma_blocks(p: torch.Tensor) -> torch.Tensor:
+    """(mbc, 8, 8) -> (mbc, 4, 4, 4) in-MB block raster order."""
+    mbc = p.shape[0]
+    return p.reshape(mbc, 2, 4, 2, 4).permute(0, 1, 3, 2, 4) \
+        .reshape(mbc, 4, 4, 4)
+
+
+def _bordered_top_rows(recon: torch.Tensor, size: int, rpad: int):
+    """(mbh, 1 + W + rpad) rows above each MB row of a u8 plane: [corner,
+    row, last pixel x rpad].  Above the frame everything is 127; below it
+    the corner is 129."""
+    H, W = recon.shape
+    above = recon[size - 1:H - 1:size]                        # (mbh - 1, W)
+    n = above.shape[0]
+    first = torch.full((1, 1 + W + rpad), 127, dtype=_U8,
+                       device=recon.device)
+    rest = torch.cat([torch.full((n, 1), 129, dtype=_U8,
+                                 device=recon.device),
+                      above, above[:, -1:].expand(n, rpad)], dim=1)
+    return torch.cat([first, rest], dim=0)
+
+
+def _bordered_left_cols(recon: torch.Tensor, size: int, mbw: int, mbh: int):
+    """(mbc, size) column left of each MB of a u8 plane; 129 left of the
+    frame."""
+    H, W = recon.shape
+    cols = torch.cat([torch.full((H, 1), 129, dtype=_U8,
+                                 device=recon.device),
+                      recon[:, size - 1:W - 1:size]], dim=1)  # (H, mbw)
+    return cols.reshape(mbh, size, mbw).permute(0, 2, 1).reshape(-1, size)
+
+
+def _frozen_luma_neighbors(recon_y: torch.Tensor, mbw: int, mbh: int):
+    """Frozen per-MB neighbours from the pre-replacement luma recon (u8).
+
+    Returns (ftop (mbc, 21) u8 = [P, A(x)..A(x+19)], fleft (mbc, 16) u8).
+    Border rules: above row 127, left column 129, above-left 127 at the
+    frame top and 129 below it; the above-right pixels of the MB's last
+    block column come from the row above the MB, the row's last pixel
+    replicated four times at the frame's right edge."""
+    top = _bordered_top_rows(recon_y, 16, 4)                  # (mbh, W + 5)
+    ftop = top.unfold(1, 21, 16)                              # (mbh, mbw, 21)
+    return (ftop.reshape(-1, 21).contiguous(),
+            _bordered_left_cols(recon_y, 16, mbw, mbh).contiguous())
+
+
+def _frozen_chroma_neighbors(recon_c: torch.Tensor, mbw: int, mbh: int):
+    """(ctop (mbc, 8), cleft (mbc, 8), ctl (mbc,)) u8 of one chroma plane:
+    top 127, left 129, top-left 127 at the frame top and 129 at its left."""
+    top = _bordered_top_rows(recon_c, 8, 0)                   # (mbh, W2 + 1)
+    ctop = top[:, 1:].unfold(1, 8, 8)                         # (mbh, mbw, 8)
+    ctl = top[:, 0:-1:8]                                      # (mbh, mbw)
+    return (ctop.reshape(-1, 8), _bordered_left_cols(recon_c, 8, mbw, mbh),
+            ctl.reshape(-1))
+
+
+def trial_luma_plain(y_mb: torch.Tensor, ftop: torch.Tensor,
+                     fleft: torch.Tensor, dc_q: int, ac_q: int):
+    """One whole-frame batched B_PRED trial at fixed quantizers.
+
+    y_mb (mbc, 16, 16) u8 source patches; ftop (mbc, 21) u8 and fleft
+    (mbc, 16) u8 frozen neighbours (`_frozen_luma_neighbors`).  The 16
+    blocks of an MB are coded in raster order; a block inside the MB reads
+    the MB's own trial reconstruction, a block on its top row or left
+    column the frozen neighbours, and the above-right of block column 3 in
+    rows 1-3 is ftop[17:21] (the row above the MB).  The earliest mode of
+    least cost wins.  Returns (levels (mbc, 16, 16) i16 zigzag, modes
+    (mbc, 16) i8, rec (mbc, 16, 16) u8)."""
+    mbc = y_mb.shape[0]
+    dev = y_mb.device
+    y_mb, ftop, fleft = y_mb.to(_I32), ftop.to(_I32), fleft.to(_I32)
+    rec = torch.zeros((mbc, 16, 16), dtype=_I32, device=dev)
+    levels = torch.zeros((mbc, 16, 16), dtype=_I32, device=dev)
+    modes = torch.zeros((mbc, 16), dtype=_I32, device=dev)
+    for br in range(4):
+        for bc in range(4):
+            r0, c0 = br * 4, bc * 4
+            if br == 0:
+                A = ftop[:, 1 + c0:9 + c0]
+            else:
+                a47 = rec[:, r0 - 1, c0 + 4:c0 + 8] if bc < 3 \
+                    else ftop[:, 17:21]
+                A = torch.cat([rec[:, r0 - 1, c0:c0 + 4], a47], dim=1)
+            L = fleft[:, r0:r0 + 4] if bc == 0 else rec[:, r0:r0 + 4, c0 - 1]
+            if br == 0:
+                P = ftop[:, c0]
+            elif bc == 0:
+                P = fleft[:, r0 - 1]
+            else:
+                P = rec[:, r0 - 1, c0 - 1]
+            src = y_mb[:, r0:r0 + 4, c0:c0 + 4]
+            preds = bpred_all_modes(A, L, P)                 # (mbc, 10, 4, 4)
+            mode = _first_min(T.dct_weight(src[:, None] - preds))
+            pred = preds.gather(
+                1, mode[:, None, None, None].expand(-1, 1, 4, 4))[:, 0]
+            lev = T.quant4x4(T.fdct4x4(src - pred), dc_q, ac_q)
+            rec[:, r0:r0 + 4, c0:c0 + 4] = torch.clamp(
+                T.idct4x4(T.dequant4x4(lev, dc_q, ac_q)) + pred, 0, 255)
+            levels[:, br * 4 + bc] = T.zigzag(lev)
+            modes[:, br * 4 + bc] = mode
+    return levels.to(torch.int16), modes.to(torch.int8), rec.to(_U8)
+
+
+def trial_luma(y_mb: torch.Tensor, ftop: torch.Tensor, fleft: torch.Tensor,
+               dc_q: int, ac_q: int):
+    """Frozen-neighbour luma trial (contract of `trial_luma_plain`): the
+    csrc/intra.cu kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if y_mb.device.type == "cpu":
+        return trial_luma_plain(y_mb, ftop, fleft, dc_q, ac_q)
+    mbc = y_mb.shape[0]
+    for t, what, shape in ((y_mb, "y_mb", (mbc, 16, 16)),
+                           (ftop, "ftop", (mbc, 21)),
+                           (fleft, "fleft", (mbc, 16))):
+        if t.device != y_mb.device or t.device.type != "cuda":
+            raise ValueError(f"trial_luma: {what} must be a CUDA tensor on "
+                             f"{y_mb.device}, or every input on the CPU")
+        if t.dtype != _U8 or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"trial_luma: {what} must be a contiguous uint8 "
+                             f"tensor of shape {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    from vp8oclenc_tpu_torch.ops import cuda_build
+    dev = y_mb.device
+    levels = torch.empty((mbc, 16, 16), dtype=torch.int16, device=dev)
+    modes = torch.empty((mbc, 16), dtype=torch.int8, device=dev)
+    rec = torch.empty((mbc, 16, 16), dtype=_U8, device=dev)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    rc = cuda_build.library("intra").vp8_trial_luma(
+        ptr(y_mb), ptr(ftop), ptr(fleft), ptr(levels), ptr(modes), ptr(rec),
+        mbc, int(dc_q), int(ac_q),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    cuda_build.check(rc, "vp8_trial_luma")
+    trial_luma.launches += 1
+    return levels, modes, rec
+
+
+trial_luma.launches = 0
+
+
+def _trial_chroma(c_mb, ctop, cleft, ctl, dc_q: int, ac_q: int):
+    """Batched TM_PRED chroma trial of one plane: c_mb (mbc, 8, 8) source
+    patches and the frozen neighbours -> (levels (mbc, 4, 16) zigzag i32,
+    rec (mbc, 8, 8) i32)."""
+    mbc = c_mb.shape[0]
+    blocks = lambda a: a.reshape(mbc, 2, 4, 2, 4).permute(0, 1, 3, 2, 4)
+    pred = tm_predict_8x8(ctop.to(_I32), cleft.to(_I32), ctl.to(_I32))
+    lev = T.quant4x4(T.fdct4x4(blocks(c_mb.to(_I32) - pred)), dc_q, ac_q)
+    rec = torch.clamp(T.idct4x4(T.dequant4x4(lev, dc_q, ac_q))
+                      + blocks(pred), 0, 255)
+    return (T.zigzag(lev).reshape(mbc, 4, 16),
+            rec.permute(0, 1, 3, 2, 4).reshape(mbc, 8, 8))
+
+
+def intra_replace_device(y, u, v, recon_y, recon_u, recon_v, cur_ssim,
+                         seg_y_dc, seg_y_ac, seg_uv_dc, seg_uv_ac,
+                         ssim_target: int, mbw: int, mbh: int):
+    """The whole batched controller on one device.
+
+    y, u, v and recon_*: whole u8 planes, the recon frozen as the segment
+    loop left it; cur_ssim (mbc,) i32: the per-MB Q15 SSIM after that
+    loop; seg_*: per-segment quantizers (host ints); ssim_target: the Q15
+    threshold.  Returns (applied (mbc,) bool, sid (mbc,) i32, modes
+    (mbc, 16), lv_y (mbc, 16, 16), lv_u, lv_v (mbc, 4, 16), rec_y
+    (mbc, 16, 16), rec_u, rec_v (mbc, 8, 8), new_cur (mbc,) i32); the
+    per-MB entries are meaningful where `applied` is set."""
+    mbc = mbw * mbh
+    ftop, fleft = _frozen_luma_neighbors(recon_y, mbw, mbh)
+    un = _frozen_chroma_neighbors(recon_u, mbw, mbh)
+    vn = _frozen_chroma_neighbors(recon_v, mbw, mbh)
+    y_mb = _plane_mb(y, 16).contiguous()
+    u_mb = _plane_mb(u, 8)
+    v_mb = _plane_mb(v, 8)
+
+    cur = cur_ssim
+    win = torch.zeros_like(cur_ssim, dtype=torch.bool)
+    best = None
+    for sid in (2, 1, 0):            # AQ -> HQ -> UQ
+        active = cur <= ssim_target
+        lv_y, md, ry_t = trial_luma(y_mb, ftop, fleft, int(seg_y_dc[sid]),
+                                    int(seg_y_ac[sid]))
+        uq = (int(seg_uv_dc[sid]), int(seg_uv_ac[sid]))
+        lv_u, ru_t = _trial_chroma(u_mb, *un, *uq)
+        lv_v, rv_t = _trial_chroma(v_mb, *vn, *uq)
+        test = mb_ssim_fx_16x16(y_mb, ry_t, u_mb, ru_t, v_mb, rv_t)
+        # strictly better only; a later, finer trial overwrites an earlier
+        # winner
+        better = active & (test > cur)
+        cur = torch.where(better, test, cur)
+        win = win | better
+        trial = (torch.full_like(cur_ssim, sid), md, lv_y, lv_u, lv_v, ry_t,
+                 ru_t, rv_t)
+        if best is None:
+            best = [torch.zeros_like(t) for t in trial]
+        best = [torch.where(better.reshape(-1, *([1] * (t.dim() - 1))), t, b)
+                for t, b in zip(trial, best)]
+
+    # suppression: a winner is applied only when none of the 4 neighbour MBs
+    # feeding its prediction (left, above-left, above, above-right) also won
+    pw = torch.nn.functional.pad(win.reshape(mbh, mbw), (1, 1, 1, 0))
+    conflict = pw[1:, :-2] | pw[:-1, :-2] | pw[:-1, 1:-1] | pw[:-1, 2:]
+    applied = win & ~conflict.reshape(-1)
+    new_cur = torch.where(applied, cur, cur_ssim)
+    return (applied, *best, new_cur)

@@ -5,9 +5,11 @@ path.
 Reference-frame bookkeeping (golden = key; altref every altref_range),
 key/inter dispatch, the chroma scene-change detector, entropy coding and
 partition assembly are as in the JAX package, so streams are byte-identical
-to it.  Keyframes and inter frames are ported with SSIM control off (the
-default); a configuration with an SSIM target is refused until the SSIM
-controller is ported (ROADMAP.md, Queue 1 item 9).
+to it.  Under an SSIM target the verdict on an inter frame (done again as
+a keyframe when its mean SSIM is below the target or too many MBs were
+replaced) is read when the frame's outputs reach the host, `depth` frames
+after its dispatch: the frame loop is speculative and rolls back to a
+snapshot taken before the frame.
 """
 from __future__ import annotations
 
@@ -88,11 +90,6 @@ class Encoder:
 
     def __init__(self, cfg: EncoderConfig, width: int, height: int,
                  device=None) -> None:
-        if cfg.ssim_target > 0.0:
-            raise ValueError(
-                f"ssim_target={cfg.ssim_target}: the SSIM controller is not "
-                f"ported to the torch backend yet (ROADMAP.md, Queue 1 item "
-                f"9); encode with SSIM control off")
         self.cfg = cfg
         self.width = width
         self.height = height
@@ -174,11 +171,14 @@ class Encoder:
     # ---- entropy + assembly ----
     def _finish_frame(self, fd: FrameData, seg: SegmentData) -> bytes:
         cfg = self.cfg
-        try:
-            from vp8oclenc_tpu_torch.native import packer as native
-            use_native = native.available()
-        except Exception:
-            use_native = False
+        from vp8oclenc_tpu_torch.native import packer as native
+        use_native = native.available()
+        if not use_native and self.backend.device.type == "cuda":
+            # the Python tokenizer is the CPU path's stand-in; beside a
+            # card it would hide a broken build behind a far slower stage
+            raise RuntimeError(
+                "the native entropy packer did not build (g++ is needed); "
+                "device='cpu' falls back to the Python tokenizer")
 
         if use_native:
             records, num, den, skip = native.tokenize_frame(
@@ -229,7 +229,9 @@ class Encoder:
     def encode_frame(self, frame: Frame) -> bytes:
         """Sequential encode of one frame (self.recon is this frame's)."""
         fd, seg = self._frame_pixels(_own_padded(frame))
-        self.backend.finalize_framedata(fd, seg)
+        if self._finalize_fd(fd, seg):
+            fd, seg = self._redo_as_key(fd)
+            self._finalize_fd(fd, seg)
         return self._finish_frame(fd, seg)
 
     def _upload_frame(self, padded: Frame):
@@ -247,11 +249,18 @@ class Encoder:
         once, so an iterator may recycle its buffers.  Up to depth + 1
         uploads are queued on one background thread besides the `depth`
         frames in flight, so up to 2 * depth + 1 frames are held in host
-        and device memory.  Frame order is kept by FIFOs of futures."""
+        and device memory.  Frame order is kept by FIFOs of futures.
+
+        Under an SSIM target the redo-as-key check is speculative at depth
+        `depth`: a frame whose check fails is rolled back to its snapshot
+        and coded again as a keyframe, and every successor already in
+        flight is dispatched again from its kept planes and device buffer
+        against the corrected references, so the bytes equal the
+        sequential encoder's."""
         from collections import deque
         from concurrent.futures import ThreadPoolExecutor
         it = iter(frames)
-        inflight = deque()       # (fd, seg)
+        inflight = deque()       # (fd, seg, (padded, device buffer))
         uploads = deque()        # futures of _upload_frame, frame order
         pool = ThreadPoolExecutor(max_workers=1)
 
@@ -270,28 +279,78 @@ class Encoder:
                     break
             while True:
                 while uploads and len(inflight) < depth:
-                    padded, dev = uploads.popleft().result()
+                    src = uploads.popleft().result()
                     if more:
                         more = pull()
-                    inflight.append(self._frame_pixels(padded, yuv_dev=dev))
+                    inflight.append((*self._frame_pixels(*src), src))
                 if not inflight:
                     break
-                fd, seg = inflight.popleft()
-                self.backend.finalize_framedata(fd, seg)
+                fd, seg, _ = inflight.popleft()
+                if self._finalize_fd(fd, seg):
+                    fd, seg = self._redo_as_key(fd)
+                    self._finalize_fd(fd, seg)
+                    stale = [src for _, _, src in inflight]
+                    inflight.clear()
+                    for src in stale:
+                        inflight.append((*self._frame_pixels(*src), src))
                 yield self._finish_frame(fd, seg)
         finally:
             for fut in uploads:
                 fut.cancel()
             pool.shutdown(wait=True)
 
-    def _frame_pixels(self, p: Frame, yuv_dev=None):
+    def _finalize_fd(self, fd: FrameData, seg: SegmentData):
+        """Wait for the frame's outputs; truthy when the SSIM controller
+        asks for the frame to be done again as a keyframe."""
+        reason = self.backend.finalize_framedata(fd, seg)
+        if reason == "ssim":
+            self.stats.scene_changes_by_ssim += 1
+        elif reason == "replaced":
+            self.stats.scene_changes_by_replaced += 1
+        return reason
+
+    _SNAPSHOT = ("frame_number", "frames_until_key", "frames_until_altref",
+                 "last_key_detect", "_scene_holdover", "prev_is_golden",
+                 "prev_is_altref", "golden_frame_number",
+                 "altref_frame_number", "last_u", "last_v", "recon")
+    _BACKEND_SNAPSHOT = ("last", "last_state", "golden", "golden_state",
+                         "altref", "altref_state")
+
+    def _snapshot_state(self):
+        """Counters, detector state and the backend's references before a
+        frame.  The references are device tensors that later frames replace
+        and never write into, so holding them is enough."""
+        return ([getattr(self, k) for k in self._SNAPSHOT],
+                [getattr(self.backend, k) for k in self._BACKEND_SNAPSHOT])
+
+    def _restore_state(self, snap) -> None:
+        for k, val in zip(self._SNAPSHOT, snap[0]):
+            setattr(self, k, val)
+        for k, val in zip(self._BACKEND_SNAPSHOT, snap[1]):
+            setattr(self.backend, k, val)
+
+    def _redo_as_key(self, fd: FrameData):
+        """Code fd's source frame again, as a keyframe, from the snapshot
+        taken before it."""
+        self._restore_state(fd.ssim_snapshot)
+        return self._frame_pixels(*fd.src_pre, force_key=True)
+
+    def _frame_pixels(self, p: Frame, yuv_dev=None, force_key=False):
         """Dispatch one padded frame's pixel work; returns (fd, seg) with
         the levels still on their way to the host."""
         y, u, v = p.y, p.u, p.v
+        snap = None
+        if self.cfg.ssim_target > 0.0 and not force_key:
+            snap = self._snapshot_state()
+
         self.frames_until_key -= 1
         self.frames_until_altref -= 1
-        is_key = self.frames_until_key < 1
-        if not is_key and self._scene_change(u, v):
+        is_key = self.frames_until_key < 1 or force_key
+        if force_key:
+            # replay the detector's side effects exactly as the discarded
+            # pass made them, whatever its verdict
+            self._scene_change(u, v)
+        elif not is_key and self._scene_change(u, v):
             self.stats.scene_changes_by_color += 1
             is_key = True
 
@@ -306,6 +365,9 @@ class Encoder:
         else:
             fd = self._encode_inter(y, u, v, seg, is_golden, is_altref,
                                     yuv_dev=yuv_dev)
+        if snap is not None:
+            fd.ssim_snapshot = snap
+            fd.src_pre = (p, yuv_dev)
 
         self.backend.promote_refs(is_golden, is_altref)
         if is_golden:

@@ -18,13 +18,17 @@ back to int32, so no step depends on signed overflow.  Everything else
 stays inside int32.
 
 Per-MB score = Y + U + V plane values (avg·3 in Q15, i.e. "1.0" = 98304).
+UNCODED_FX marks MBs that no pass has coded yet.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 Q1 = 32768                      # 1.0 for one plane
 Q3 = 3 * Q1                     # 1.0 for the 3-plane MB score
+UNCODED_FX = -2 * Q3            # below every real score
 WEAKEN_FX = (95 * Q3) // 100    # minSSIM > 0.95 weakens the loop filter
 
 _C1 = {n: int(round(6.5025 * n * n)) for n in (256, 64)}
@@ -32,6 +36,16 @@ _C2 = {n: int(round(58.5225 * n * n)) for n in (256, 64)}
 
 _I32 = torch.int32
 _I64 = torch.int64
+
+
+def target_fx(ssim_target: float) -> int:
+    """Config SSIM target (0..1 float) -> 3-plane Q15 threshold."""
+    return int(math.floor(ssim_target * Q3))
+
+
+def fx_to_float(fx) -> float:
+    """3-plane Q15 MB score -> the conventional [0..1] SSIM average."""
+    return float(fx) / Q3
 
 
 def _divq15(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -93,4 +107,13 @@ def mb_ssim_fx(y, ry, u, ru, v, rv) -> torch.Tensor:
     fy = ssim_fx_blocks(_plane_mb_blocks(y, 16), _plane_mb_blocks(ry, 16), 256)
     fu = ssim_fx_blocks(_plane_mb_blocks(u, 8), _plane_mb_blocks(ru, 8), 64)
     fv = ssim_fx_blocks(_plane_mb_blocks(v, 8), _plane_mb_blocks(rv, 8), 64)
+    return fy + fu + fv
+
+
+def mb_ssim_fx_16x16(sy, ry, su, ru, sv, rv) -> torch.Tensor:
+    """Per-MB score on patches: (..., 16, 16) luma and (..., 8, 8) chroma
+    source/recon pairs -> (...,) int32 Q15."""
+    fy = ssim_fx_blocks(sy.flatten(-2), ry.flatten(-2), 256)
+    fu = ssim_fx_blocks(su.flatten(-2), ru.flatten(-2), 64)
+    fv = ssim_fx_blocks(sv.flatten(-2), rv.flatten(-2), 64)
     return fy + fu + fv
