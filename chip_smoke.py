@@ -8,7 +8,15 @@ Phases (any failure exits non-zero before the result line):
      parallel), and the host entropy packer with g++;
   3. kernels: each intra and loop-filter kernel against its plain PyTorch
      version on the same card at 1920x1088, on synthetic planes made from a
-     seed at two quantizer pairs; then the full-pel and quarter-pel search
+     seed at two quantizer pairs, the luma wavefront and the loop filter
+     (one CTA per MB row, rows pipelined through progress counters) five
+     launches each, every one compared; the two again on a 64x2176 plane
+     (136 MB rows, more than the card has SMs), on 16x16, 16x1088 and
+     1920x16 planes, with a mixed inner-edge mask and two segments of which
+     one has level 0; their time on one MB row of width 1920, which no row
+     above holds up, scaled to the frame's chain of steps (the "chain"
+     figure: what of the 1080p time is step latency, the rest is waiting
+     for the row above); then the full-pel and quarter-pel search
      kernels against theirs on the real pyramid levels 4..0 of two
      contents (a panned canvas searched level by level, and noise searched
      from random vectors that reach past the frame edges); then the
@@ -61,6 +69,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 INT_OPS_PER_S = 67e12         # H100 SXM non-tensor-core peak (fp32 figure)
 W, H = 1920, 1080
 QI_PAIRS = (10, 40)           # keyframe quantizer indices held to the plain
+REPEATS = 5                   # launches of a row kernel, each compared
 N_FRAMES, N_CPU_FRAMES = 10, 2
 N_CPU_GOP_FRAMES = 3          # 1 keyframe and 2 inter frames
 SSIM_CFG = dict(qi_min=50, qi_max=112, gop_size=150, ssim_target=0.98)
@@ -280,6 +289,11 @@ def phase_kernels(dev):
             if err != 0:
                 raise AssertionError(f"{name} at qi={qi}: kernel differs "
                                      f"from its plain version by {err}")
+            if name != "chroma_wavefront":    # rows race if the rule is off
+                for i in range(REPEATS):
+                    if max_abs_err(kfn(), pout) != 0:
+                        raise AssertionError(f"{name} at qi={qi}: launch "
+                                             f"{i + 2} differs")
             ms = cuda_ms(kfn, reps=10)
             pms = cuda_ms(pfn, reps=1, warm=0)
             bms, by = bound(nbytes, ops)
@@ -292,7 +306,67 @@ def phase_kernels(dev):
             r["ms"].append(ms)
             r["plain_ms"].append(pms)
             r["bound_ms"].append(bms)
+
+        # one MB row of width 1920: no row above to wait for, so its time
+        # over its steps is a step's latency; times the frame's steps it
+        # is the chain a 1080p launch cannot go below
+        mbw, mbh = Wp // 16, Hp // 16
+        y1 = y[:16].contiguous()
+        row = [p[:n].contiguous() for p, n in zip(planes, (16, 8, 8))]
+        sid1, inner1 = sid[:mbw].contiguous(), inner[:mbw].contiguous()
+        for name, fn, row_steps, steps in (
+                ("luma_wavefront", lambda: I.luma_wavefront(y1, ydq, yaq),
+                 Wp // 4 + 6, Wp // 4 + 2 * (Hp // 4 - 1)),
+                ("loop_filter",
+                 lambda: LF.filter_planes(*row, sid1, inner1, *lf),
+                 mbw, mbw + 2 * (mbh - 1))):
+            row_ms = cuda_ms(fn, reps=10)
+            chain = row_ms / row_steps * steps
+            log(f"  {name} qi={qi}: one MB row of {Wp} in {row_ms:.4f} ms, "
+                f"{row_ms / row_steps * 1e3:.3f} us a step; chain of "
+                f"{steps} steps {chain:.3f} ms")
+            rows[name].setdefault("chain_ms", []).append(chain)
     return rows
+
+
+def phase_row_shapes(dev):
+    """The two row-pipelined kernels where the pipeline has its edges: more
+    MB rows than SMs, one MB, one MB column, one MB row; the filter with a
+    mixed inner-edge mask and two segments, one of level 0."""
+    from vp8oclenc_tpu_torch.ops import intra as I
+    from vp8oclenc_tpu_torch.ops import loopfilter as LF
+
+    for w, h in ((64, 2176), (16, 16), (16, 1088), (1920, 16)):
+        rng = np.random.default_rng(w + h)
+        mbc = (w // 16) * (h // 16)
+        ramp = np.add.outer(np.arange(h) // 4 * 7, np.arange(w) // 4 * 5) % 60
+        planes = [torch.from_numpy(a.astype(np.uint8)).to(dev) for a in (
+            ramp + 100 + rng.integers(0, 10, (h, w)),
+            ramp[::2, ::2] + 90 + rng.integers(0, 4, (h // 2, w // 2)),
+            rng.integers(90, 140, (h // 2, w // 2)))]
+        sid = torch.as_tensor(rng.integers(0, 2, mbc), dtype=torch.int32,
+                              device=dev)
+        inner = torch.as_tensor(rng.random(mbc) < 0.5, device=dev)
+        lf = [torch.as_tensor(a, dtype=torch.int32, device=dev) for a in
+              ([0, 40, 0, 0], [0, 90, 0, 0], [0, 80, 0, 0], [0, 6, 0, 0],
+               [0, 1, 0, 0])]
+        pf = LF.filter_planes_plain(*planes, sid, inner, *lf)
+        if mbc > 1 and max_abs_err(pf[:1], planes[:1]) == 0:
+            raise AssertionError(f"{w}x{h}: the filter changed nothing")
+        y = torch.from_numpy(synth_plane(rng, h, w, 0)).to(dev)
+        pl = I.luma_wavefront_plain(y, 12, 15)
+        for i in range(REPEATS):
+            for name, k, p in (
+                    ("loop_filter",
+                     LF.filter_planes(*planes, sid, inner, *lf), pf),
+                    ("luma_wavefront", I.luma_wavefront(y, 12, 15), pl)):
+                err = max_abs_err(k, p)
+                if err != 0:
+                    raise AssertionError(f"{name} at {w}x{h}, launch "
+                                         f"{i + 1}: differs from its plain "
+                                         f"version by {err}")
+        log(f"  {w}x{h} ({h // 16} MB rows): loop_filter and luma_wavefront "
+            f"bit-exact over {REPEATS} launches")
 
 
 def _fullpel_counts(v0, Hl, Wl):
@@ -869,6 +943,8 @@ def main() -> int:
 
     log("[kernels] CUDA kernel vs plain version at 1920x1088")
     rows = phase_kernels(dev)
+    log("[kernels] row pipelines at the edges of their shapes")
+    phase_row_shapes(dev)
     log("[kernels] search kernels vs plain versions, 1920x1088 pyramids")
     rows.update(phase_search(dev))
     log("[kernels] luma trial kernel vs plain version, 8160 MBs")
@@ -910,6 +986,8 @@ def main() -> int:
             "plain_ms": statistics.median(r["plain_ms"]),
             "bound_ms": max(r["bound_ms"]), "bound_by": r["bound_by"],
             "library_ms": None, "bit_exact": r["max_abs_err"] == 0})
+        if "chain_ms" in r:
+            kernels[-1]["chain_ms"] = statistics.median(r["chain_ms"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,8 @@ def _planes(w, h, seed):
     return [a.astype(np.uint8) for a in (y, c(), c())]
 
 
-@pytest.mark.parametrize("size", [(96, 80), (80, 64), (48, 96)])
+@pytest.mark.parametrize("size", [(96, 80), (80, 64), (48, 96), (16, 16),
+                                  (16, 96), (96, 16)])
 @pytest.mark.parametrize("q", [(7, 9), (120, 157)])
 def test_kernels_match_plain(dev, size, q):
     w, h = size
@@ -60,6 +61,73 @@ def test_kernels_match_plain(dev, size, q):
     p = LF.filter_planes_plain(*planes, sid, inner, *lim)
     assert all(torch.equal(a, b) for a, b in zip(k, p))
     torch.cuda.synchronize()
+
+
+def _filter_args(w, h, seed, dev):
+    """Blocky planes that the filter changes, a mixed inner mask, and two
+    segments in use of which one has level 0."""
+    rng = np.random.default_rng(seed)
+    ramp = np.add.outer(np.arange(h) // 4 * 7, np.arange(w) // 4 * 5) % 60
+    y = ramp + 100 + rng.integers(0, 10, (h, w))
+    u = ramp[::2, ::2] + 90 + rng.integers(0, 4, (h // 2, w // 2))
+    v = rng.integers(90, 140, (h // 2, w // 2))
+    mbc = (w // 16) * (h // 16)
+    sid = rng.integers(0, 2, mbc)
+    inner = rng.random(mbc) < 0.5
+    lim = ([0, 40, 0, 0], [0, 90, 0, 0], [0, 80, 0, 0], [0, 6, 0, 0],
+           [0, 1, 0, 0])
+    planes = [torch.from_numpy(a.astype(np.uint8)).to(dev) for a in (y, u, v)]
+    return planes + [torch.as_tensor(sid, dtype=torch.int32, device=dev),
+                     torch.as_tensor(inner, device=dev)] \
+        + [torch.as_tensor(a, dtype=torch.int32, device=dev) for a in lim]
+
+
+def test_more_mb_rows_than_sms(dev):
+    """A 64x2176 plane has 136 MB rows, more than the card has SMs: the
+    row CTAs cannot all be resident, and a row still only waits for a row
+    that is running."""
+    w, h = 64, 2176
+    y = torch.from_numpy(_planes(w, h, 5)[0]).to(dev)
+    k, p = I.luma_wavefront(y, 12, 15), I.luma_wavefront_plain(y, 12, 15)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    args = _filter_args(w, h, 6, dev)
+    k, p = LF.filter_planes(*args), LF.filter_planes_plain(*args)
+    assert not torch.equal(p[0], args[0])
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    torch.cuda.synchronize()
+
+
+def test_repeated_launches_agree(dev):
+    """Rows of one frame run on different SMs at different speeds (level-0
+    and inner-less MBs are cheap): a wrong wait rule or a stale read shows
+    as a launch that differs."""
+    w, h = 640, 368
+    y = torch.from_numpy(_planes(w, h, 8)[0]).to(dev)
+    args = _filter_args(w, h, 9, dev)
+    pl, pf = I.luma_wavefront_plain(y, 20, 26), LF.filter_planes_plain(*args)
+    for _ in range(5):
+        assert all(torch.equal(a, b)
+                   for a, b in zip(I.luma_wavefront(y, 20, 26), pl))
+        assert all(torch.equal(a, b)
+                   for a, b in zip(LF.filter_planes(*args), pf))
+    torch.cuda.synchronize()
+
+
+def test_filter_takes_unaligned_planes(dev):
+    """Planes cut from a packed buffer at an odd offset are copied to a
+    16-byte boundary by the wrapper, not refused."""
+    w, h = 48, 32
+    args = _filter_args(w, h, 3, dev)
+    want = LF.filter_planes_plain(*args)
+    buf = torch.empty(args[0].numel() + 1, dtype=torch.uint8, device=dev)
+    buf[1:] = args[0].reshape(-1)
+    args[0] = buf[1:].view(h, w)
+    assert args[0].data_ptr() % 16
+    got = LF.filter_planes(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    y = args[0]
+    assert all(torch.equal(a, b) for a, b in zip(
+        I.luma_wavefront(y, 9, 11), I.luma_wavefront_plain(y, 9, 11)))
 
 
 def test_gop1_stream_card_equals_cpu(dev):

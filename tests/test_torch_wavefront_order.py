@@ -1,0 +1,154 @@
+"""The order in which the CUDA kernels of the loop filter and of the luma
+wavefront take their units, held against the plain versions on the CPU.
+
+The kernels give each MB row to one CTA and let row r take unit bx once row
+r-1 is past bx+1 (for luma the same rule between the 4x4-block rows,
+inside an MB row and across MB rows); rows otherwise run at any speed.
+Here the units run one at a time through the plain versions' step
+functions (`filter_step`, `luma_step`) in seeded random orders drawn from
+exactly what that rule allows, luma from a reconstruction poisoned with a
+sentinel wherever nothing is coded yet.  Every such order must give the
+plain versions' outputs, and the JAX package's, bit for bit (tolerance 0);
+with a lag of 1 instead of 2 the outputs must differ, which shows that the
+test can fail."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from vp8oclenc_tpu.ops.intra import build_intra_kernel
+from vp8oclenc_tpu.ops.loopfilter import filter_planes as jax_filter_planes
+from vp8oclenc_tpu.pipeline.segments import derive_filter_limits
+from vp8oclenc_tpu_torch.ops import intra as TI
+from vp8oclenc_tpu_torch.ops import loopfilter as TLF
+
+SIZES = [(96, 80), (48, 96), (16, 64)]          # (w, h)
+SENTINEL = 1 << 20
+
+
+def allowed_order(rng, n_rows, n_cols, lag=2):
+    """A random order of the units (row, col) in which every row runs left
+    to right and row r takes column c only when row r-1 has done
+    min(c + lag, n_cols) units."""
+    done = [0] * n_rows
+    order = []
+    while len(order) < n_rows * n_cols:
+        ready = [r for r in range(n_rows) if done[r] < n_cols and (
+            r == 0 or done[r - 1] >= min(done[r] + lag, n_cols))]
+        r = ready[rng.integers(len(ready))]
+        order.append((r, done[r]))
+        done[r] += 1
+    return order
+
+
+def test_allowed_orders_differ_from_the_diagonal_order():
+    rng = np.random.default_rng(0)
+    a, b = allowed_order(rng, 5, 6), allowed_order(rng, 5, 6)
+    assert a != b and sorted(a) == sorted(b)
+    diag = sorted(a, key=lambda u: (u[1] + 2 * u[0], u[0]))
+    assert a != diag
+    # a row can run far ahead of the row below it
+    assert max(c - sum(1 for u in a[:i] if u[0] == r + 1)
+               for i, (r, c) in enumerate(a) if r < 4) > 2
+
+
+def _filter_inputs(w, h, seed):
+    rng = np.random.default_rng(seed)
+    mbc = (w // 16) * (h // 16)
+    # 4-pixel steps under noise: edges that the filter changes, unevenly
+    ramp = np.add.outer(np.arange(h) // 4 * 7, np.arange(w) // 4 * 5) % 60
+    y = (ramp + 100 + rng.integers(0, 10, (h, w))).astype(np.uint8)
+    u = (ramp[::2, ::2] + 90 + rng.integers(0, 4, (h // 2, w // 2))) \
+        .astype(np.uint8)
+    v = rng.integers(90, 140, (h // 2, w // 2)).astype(np.uint8)
+    level = np.array([40, 0, 25, 63], np.int32)   # segment 1 unfiltered
+    intr, mbe, sbe, hev = derive_filter_limits(level, 2, False)
+    sid = rng.integers(0, 4, mbc).astype(np.int32)
+    inner = rng.random(mbc) < 0.6
+    return y, u, v, sid, inner, level, mbe, sbe, intr, hev
+
+
+def _filter_in_order(args, order):
+    st = TLF.filter_state(*args)
+    for by, bx in order:
+        TLF.filter_step(st, torch.tensor([by]), torch.tensor([bx]))
+    return TLF.filter_result(st)
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_filter_in_any_allowed_order(size, seed):
+    w, h = size
+    raw = _filter_inputs(w, h, seed)
+    args = [torch.from_numpy(np.asarray(a)) for a in raw]
+    order = allowed_order(np.random.default_rng(seed + 10), h // 16, w // 16)
+    got = _filter_in_order(args, order)
+    want = TLF.filter_planes_plain(*args)
+    assert not torch.equal(want[0], args[0])     # the filter did work
+    for g, p in zip(got, want):
+        assert g.dtype == torch.uint8 and torch.equal(g, p)
+    jx = jax_filter_planes(*(jnp.asarray(a) for a in raw), w // 16, h // 16)
+    for g, j in zip(got, jx):
+        assert np.array_equal(g.numpy(), np.asarray(j))
+
+
+def _luma_plane(w, h, seed):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, (h, w)).astype(np.uint8)
+
+
+def _luma_in_order(y, q, order):
+    st = TI.luma_state(y)
+    st["rec"].fill_(SENTINEL)
+    for by, bx in order:
+        TI.luma_step(st, torch.tensor([by]), torch.tensor([bx]), *q)
+    return TI.luma_result(st)
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("seed,q", [(0, (8, 10)), (1, (60, 75))])
+def test_luma_in_any_allowed_order(size, seed, q):
+    w, h = size
+    y = torch.from_numpy(_luma_plane(w, h, seed))
+    order = allowed_order(np.random.default_rng(seed + 20), h // 4, w // 4)
+    got = _luma_in_order(y, q, order)
+    want = TI.luma_wavefront_plain(y, *q)
+    for g, p in zip(got, want):
+        assert g.dtype == p.dtype and torch.equal(g, p)
+    assert len(torch.unique(got[2])) > 3         # several modes in use
+
+
+def test_luma_in_allowed_order_matches_jax():
+    w, h = 48, 96
+    q = (8, 10)
+    yn = _luma_plane(w, h, 2)
+    order = allowed_order(np.random.default_rng(5), h // 4, w // 4)
+    got = _luma_in_order(torch.from_numpy(yn), q, order)
+    c = np.full((h // 2, w // 2), 128, np.uint8)
+    want = build_intra_kernel(w, h)(
+        jnp.asarray(yn), jnp.asarray(c), jnp.asarray(c),
+        *(jnp.int32(x) for x in (*q, *q)))
+    assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert np.array_equal(got[1].numpy(), np.asarray(want[3])[:, :16])
+    assert np.array_equal(got[2].numpy(), np.asarray(want[4]))
+
+
+@pytest.mark.parametrize("which", ["filter", "luma"])
+def test_a_lag_of_one_is_not_enough(which):
+    """Row r taking unit bx as soon as row r-1 has done bx itself reads
+    pixels that row r-1's unit bx+1 has yet to write (its left MB edge;
+    the above-right block): some allowed-by-lag-1 order must differ."""
+    w, h = 96, 80
+    rng = np.random.default_rng(3)
+    if which == "filter":
+        args = [torch.from_numpy(np.asarray(a))
+                for a in _filter_inputs(w, h, 0)]
+        want = TLF.filter_planes_plain(*args)
+        got = _filter_in_order(args, allowed_order(rng, h // 16, w // 16, 1))
+    else:
+        y = torch.from_numpy(_luma_plane(w, h, 0))
+        want = TI.luma_wavefront_plain(y, 8, 10)
+        got = _luma_in_order(y, (8, 10),
+                             allowed_order(rng, h // 4, w // 4, 1))
+    assert not torch.equal(got[0], want[0])

@@ -11,29 +11,63 @@
 //
 // What bounds it: the dependency chain, not bytes or operations.  A luma
 // block needs its left, above and above-right neighbours reconstructed, so
-// the frame is D = (w4-1) + 2*(h4-1) + 1 sequential stages (1022 at
-// 1920x1088) with at most h4 independent blocks per stage; chroma has
-// D = mbw + mbh - 1 stages (187).  The whole frame moves ~6 MB and needs
-// ~10^9 integer operations: microseconds of bandwidth or ALU time, against
-// a stage chain whose each step costs a barrier plus a few dependent
-// memory round trips.
+// the frame is a chain of (w4-1) + 2*(h4-1) + 1 block steps (1022 at
+// 1920x1088); chroma has mbw + mbh - 1 MB steps (187).  The whole frame
+// moves ~6 MB and needs ~10^9 integer operations: microseconds of
+// bandwidth or ALU time.  What can be had is the chain at on-chip latency:
+// steps x (one block's dependent work from shared memory and registers).
 //
-// Design: one CTA walks all stages with __syncthreads() between them, so
-// the reconstruction written in one stage is visible to the next without a
-// second launch (global writes are visible inside the CTA after the
-// barrier, not to other CTAs).  Luma: one thread per band of 4 pixel rows
-// (h4 = 272 at 1080p; up to 512 threads, taller frames loop over bands),
-// launched with a 128-register budget; each thread scores
-// the 10 predictors with the exact separable integer cost, keeps the first
-// minimum, and writes recon, zigzag levels and the mode straight into the
-// output layout.  Chroma: one thread per (plane, MB row, 4x4 quadrant): the
-// TM predictor of an MB reads only pixels outside the MB, so the 4
-// quadrants are independent.  Recon lives in the output plane in device
-// memory (L1-cached reads).  Everything is int32; no float anywhere.
+// Luma (`luma_rows_kernel`): one CTA per MB row, rows pipelined.
+//   * Inside a CTA one warp per 4x4-block row; block (bx, by) runs once
+//     (bx+1, by-1) is done (at the right edge: the row's last block), which
+//     the warps tell each other through counters in shared memory.  A
+//     block's source pixels and the pixel lines it predicts from are in
+//     shared memory (the row's 16 source lines, staged with 16-byte loads
+//     before the walk; the line above the MB row and each block row's
+//     bottom line); its left neighbours are the warp's previous result, in
+//     registers.
+//   * A block is spread over the warp (`search_and_code_warp`): the
+//     predictor values one a lane, the ten mode costs one a lane, the
+//     earliest minimum by one warp reduction, the winner coded by every
+//     lane alike.  Quantizing multiplies by a reciprocal (`Quant`): the
+//     card has no integer divide.
+//   * Across rows only the bottom pixel line of an MB row goes through
+//     device memory.  Warp 5 writes it to the output plane as block row 3
+//     produces it and publishes the count of finished blocks in the row's
+//     counter (st.release, device scope); warp 4 of the row below polls
+//     that counter (ld.acquire) and brings the line into shared memory
+//     with __ldcg (L2, never a stale L1 line).  So the coding warps wait
+//     on shared memory only, and the trips to L2 overlap their work.
+//     Reconstruction, levels (zigzag, two 16-byte stores) and modes are
+//     stored straight into the output layout behind the block's release.
+//   * Forward progress: a CTA takes its MB row from an atomic ticket, not
+//     from blockIdx, so row r only ever waits for row r-1, whose ticket
+//     was drawn earlier by a CTA that is running already (or done); row 0
+//     waits for nothing.  No co-residency is needed: 3840x2160 has 135 MB
+//     rows on 132 SMs.  The counters and the ticket are scratch that the
+//     caller hands in zeroed.  No barrier spans the frame.
+//   * ptxas (sm_90a, CUDA 12.8): 56 registers, no spills, 720 bytes of
+//     static shared memory; dynamic (16*w4 + 5*(w4+1)) words, 40 KB at 1920
+//     wide.  On an NVIDIA H100 80GB HBM3 (700 W) a 1920x1088 frame takes
+//     1.5 ms (the one-CTA kernel it replaces: 9.5 ms); PERF.md has the
+//     measurements.
+//
+// Chroma (`chroma_wavefront_kernel`): one CTA walks all stages with
+// __syncthreads() between them; one thread per (plane, MB row, 4x4
+// quadrant): the TM predictor of an MB reads only pixels outside the MB, so
+// the 4 quadrants are independent.  Recon lives in the output plane in
+// device memory (visible inside the CTA after the barrier).  The row
+// pipeline of the luma kernel would apply to it as it is.
+// Everything is int32; no float anywhere.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "rowsync.cuh"
+
 namespace {
+
+using rowsync::post;
+using rowsync::wait_above;
 
 // Zigzag position of each raster coefficient (tables.INV_ZIGZAG): stores
 // go to lz[kInvZigzag[i]] so the register array is indexed statically.
@@ -195,18 +229,42 @@ __device__ __forceinline__ void fdct4x4(const int* x, int* o) {
   }
 }
 
+// A quantizer with the multiplier that divides by it: for 0 <= a < 2^32 / q,
+// a / q == __umulhi(a, m) with m = floor(2^32 / q) + 1 (m * q exceeds 2^32
+// by e <= q, and the error a * e / (q * 2^32) stays below 1 / q).  A level
+// is at most 2^16 and q at most 2^8.  The hardware has no integer divide:
+// `a / q` is ~25 dependent instructions, 16 times per block.
+struct Quant {
+  int q, half;
+  unsigned m;
+};
+
+__device__ __forceinline__ Quant make_quant(int q) {
+  Quant d;
+  d.q = q;
+  d.half = q / 2;
+  d.m = q > 1 ? (unsigned)(0x100000000ULL / (unsigned)q) + 1u : 0u;
+  return d;
+}
+
+__device__ __forceinline__ int div_quant(int a, const Quant& d) {
+  return d.q > 1 ? (int)__umulhi((unsigned)a, d.m) : a;
+}
+
 // Quantize (q/2 rounding toward zero; only non-negative values are
 // divided) and dequantize in place: lev gets the levels, x the dequantized
 // coefficients.
-__device__ __forceinline__ void quant_dequant(int* x, int* lev, int dc_q,
-                                              int ac_q) {
+__device__ __forceinline__ void quant_dequant(int* x, int* lev,
+                                              const Quant& dc,
+                                              const Quant& ac) {
   for (int i = 0; i < 16; ++i) {
-    int q = i == 0 ? dc_q : ac_q;
+    const Quant& d = i == 0 ? dc : ac;
     int c = x[i];
-    int a = c + (c < 0 ? -(q / 2) : q / 2);
-    int l = a < 0 ? -((-a) / q) : a / q;
+    int a = (c < 0 ? -c : c) + d.half;
+    int l = div_quant(a, d);
+    l = c < 0 ? -l : l;
     lev[i] = l;
-    x[i] = l * q;
+    x[i] = l * d.q;
   }
 }
 
@@ -236,7 +294,8 @@ __device__ __forceinline__ void idct4x4(const int* ip, int* o) {
 
 // Residual -> levels (raster) and reconstructed pixels.
 __device__ __forceinline__ void code_block(const int* res, const int* pred,
-                                           int dc_q, int ac_q, int* lev,
+                                           const Quant& dc_q,
+                                           const Quant& ac_q, int* lev,
                                            int* rec) {
   int co[16], rr[16];
   fdct4x4(res, co);
@@ -246,12 +305,15 @@ __device__ __forceinline__ void code_block(const int* res, const int* pred,
 }
 
 // One B_PRED block from its source pixels and neighbours: the earliest of
-// the 10 modes with the least cost, then the winner coded.  The mode loop
-// stays rolled: unrolled, the ten predictors need 255 registers.  Returns
-// the mode; lev gets the raster levels, out the reconstructed pixels.
+// the 10 modes with the least cost, then the winner coded, by one thread
+// (`trial_luma_kernel`).  The mode loop stays rolled: unrolled, the ten
+// predictors need 255 registers.  Returns the mode; lev gets the raster
+// levels, out the reconstructed pixels.
 __device__ __forceinline__ int search_and_code(const int* src, const int* A,
-                                               const int* L, int P, int dc_q,
-                                               int ac_q, int* lev, int* out) {
+                                               const int* L, int P,
+                                               const Quant& dc_q,
+                                               const Quant& ac_q, int* lev,
+                                               int* out) {
   int best = 0, best_cost = 0;
 #pragma unroll 1
   for (int m = 0; m < 10; ++m) {
@@ -271,65 +333,218 @@ __device__ __forceinline__ int search_and_code(const int* src, const int* A,
   return best;
 }
 
-__device__ void luma_block(const uint8_t* __restrict__ y, uint8_t* rec,
-                           int16_t* levels, int8_t* modes, int w4, int bx,
-                           int by, int dc_q, int ac_q) {
-  const int W = w4 * 4, x = bx * 4, yy = by * 4;
-  int A[8], L[4], P;
-  if (by == 0) {
-    for (int j = 0; j < 8; ++j) A[j] = 127;
-    P = 127;
-  } else {
-    const uint8_t* above = rec + (yy - 1) * W;
-    for (int j = 0; j < 4; ++j) A[j] = above[x + j];
-    if (bx % 4 < 3) {
-      for (int j = 0; j < 4; ++j) A[4 + j] = above[x + 4 + j];
-    } else {
-      int mb_top = (by / 4) * 16;
-      if (mb_top == 0) {
-        for (int j = 0; j < 4; ++j) A[4 + j] = 127;
-      } else if (bx == w4 - 1) {
-        int e = rec[(mb_top - 1) * W + x + 3];
-        for (int j = 0; j < 4; ++j) A[4 + j] = e;
-      } else {
-        for (int j = 0; j < 4; ++j) A[4 + j] = rec[(mb_top - 1) * W + x + 4 + j];
-      }
-    }
-    P = bx == 0 ? 129 : above[x - 1];
-  }
-  for (int r = 0; r < 4; ++r) L[r] = bx == 0 ? 129 : rec[(yy + r) * W + x - 1];
+// The ten B_PRED predictors, table-driven for `search_and_code_warp`.  With
+// the edge E[0..12] = L3 L2 L1 L0 P A0..A7 (E[-1] = E[0], E[13] = E[12]),
+// every predicted pixel of every mode is one of 43 values: F[i] =
+// avg3(E[i-1], E[i], E[i+1]) at 0..12, G[i] = avg2(E[i], E[i+1]) at 13..24,
+// L3 at 25, the DC value at 26 and the 16 TM pixels at 27..42.  Row m holds
+// mode m's 16 indices into that array, one byte each, pixel 0 lowest.  The
+// same predictors as `bpred`; tests hold the two kernels that use them
+// against one plain version.
+constexpr int kPredVals = 43;
+__constant__ uint32_t kPredTab[10][4] = {
+    {0x1a1a1a1au, 0x1a1a1a1au, 0x1a1a1a1au, 0x1a1a1a1au},   // DC
+    {0x1e1d1c1bu, 0x2221201fu, 0x26252423u, 0x2a292827u},   // TM
+    {0x08070605u, 0x08070605u, 0x08070605u, 0x08070605u},   // VE
+    {0x03030303u, 0x02020202u, 0x01010101u, 0x00000000u},   // HE
+    {0x09080706u, 0x0a090807u, 0x0b0a0908u, 0x0c0b0a09u},   // LD
+    {0x07060504u, 0x06050403u, 0x05040302u, 0x04030201u},   // RD
+    {0x14131211u, 0x07060504u, 0x13121103u, 0x06050402u},   // VR
+    {0x15141312u, 0x09080706u, 0x0a151413u, 0x0b090807u},   // VL
+    {0x06050410u, 0x0410030fu, 0x030f020eu, 0x020e010du},   // HD
+    {0x010e020fu, 0x000d010eu, 0x1919000du, 0x19191919u}};  // HU
 
-  int src[16];
-  for (int r = 0; r < 4; ++r)
-    for (int c = 0; c < 4; ++c) src[r * 4 + c] = y[(yy + r) * W + x + c];
-
-  int lev[16], out[16];
-  const int best = search_and_code(src, A, L, P, dc_q, ac_q, lev, out);
-  for (int r = 0; r < 4; ++r)
-    for (int c = 0; c < 4; ++c)
-      rec[(yy + r) * W + x + c] = (uint8_t)out[r * 4 + c];
-
-  const int mb = (by / 4) * (w4 / 4) + bx / 4;
-  const int sub = (by % 4) * 4 + bx % 4;
-  int16_t* lz = levels + (mb * 16 + sub) * 16;
-  for (int i = 0; i < 16; ++i) lz[kInvZigzag[i]] = (int16_t)lev[i];
-  modes[mb * 16 + sub] = (int8_t)best;
+// Byte k (0..15) of the 16 bytes w0 w1 w2 w3.
+__device__ __forceinline__ int byte_of(uint32_t w0, uint32_t w1, uint32_t w2,
+                                       uint32_t w3, int k) {
+  return __byte_perm(k < 8 ? w0 : w2, k < 8 ? w1 : w3, k & 7) & 255;
 }
 
-constexpr int kLumaThreads = 512;   // register budget: 128 per thread
-
-__global__ void __launch_bounds__(kLumaThreads)
-    luma_wavefront_kernel(const uint8_t* __restrict__ y, uint8_t* rec,
-                          int16_t* levels, int8_t* modes, int w4, int h4,
-                          int dc_q, int ac_q) {
-  const int D = (w4 - 1) + 2 * (h4 - 1) + 1;
-  for (int d = 0; d < D; ++d) {
-    for (int by = threadIdx.x; by < h4; by += blockDim.x) {
-      int bx = d - 2 * by;
-      if (bx >= 0 && bx < w4)
-        luma_block(y, rec, levels, modes, w4, bx, by, dc_q, ac_q);
+// One B_PRED block by a whole warp.  wl = L3 L2 L1 L0, a03 = A0..A3, a47 =
+// A4..A7 as bytes, lowest first.  The lanes build the 43 predictor values
+// in `vals` (shared memory, one lane a value); lanes 0..9 then gather one
+// predictor each through `tab` (their row of kPredTab) and score it; the
+// earliest minimum is one __reduce_min_sync over (cost << 4 | mode) (a
+// cost is below 2^27); every lane then codes the winner, so that each
+// holds the whole result and nothing has to be handed round.  Cost and
+// coding are the device functions `search_and_code` uses.  The caller
+// synchronises the warp before the next call (`vals` is reused).
+__device__ __forceinline__ int search_and_code_warp(
+    const int* src, uint32_t wl, uint32_t a03, uint32_t a47, int P,
+    const Quant& dc_q, const Quant& ac_q, int lane, const uint32_t* tab,
+    int* vals, int* lev, int* out) {
+  const uint32_t w1 = (uint32_t)P | a03 << 8, w2 = a03 >> 24 | a47 << 8,
+                 w3 = a47 >> 24;
+  {
+    const int i = lane < 12 ? lane : 12;
+    const int em = byte_of(wl, w1, w2, w3, i > 0 ? i - 1 : 0);
+    const int e0 = byte_of(wl, w1, w2, w3, i);
+    const int ep = byte_of(wl, w1, w2, w3, i < 12 ? i + 1 : 12);
+    if (lane < 13) vals[lane] = avg3(em, e0, ep);
+    if (lane < 12) vals[13 + lane] = avg2(e0, ep);
+    if (lane < 16)
+      vals[27 + lane] = clamp255(byte_of(wl, w1, w2, w3, 5 + (lane & 3)) +
+                                 byte_of(wl, w1, w2, w3, 3 - (lane >> 2)) - P);
+    if (lane == 16) {
+      vals[25] = wl & 255u;
+      vals[26] = (__vsadu4(a03, 0u) + __vsadu4(wl, 0u) + 4) >> 3;
     }
-    __syncthreads();
+  }
+  __syncwarp();
+  int pred[16], res[16];
+  for (int i = 0; i < 16; ++i) {
+    pred[i] = vals[(tab[i >> 2] >> (8 * (i & 3))) & 255u];
+    res[i] = src[i] - pred[i];
+  }
+  const int cost = dct_weight(res);
+  const int key = __reduce_min_sync(
+      0xffffffffu, lane < 10 ? (cost << 4) | lane : 0x7fffffff);
+  const int best = key & 15;
+  uint32_t bt[4];
+  for (int k = 0; k < 4; ++k) bt[k] = __shfl_sync(0xffffffffu, tab[k], best);
+  for (int i = 0; i < 16; ++i) {
+    pred[i] = vals[(bt[i >> 2] >> (8 * (i & 3))) & 255u];
+    res[i] = src[i] - pred[i];
+  }
+  code_block(res, pred, dc_q, ac_q, lev, out);
+  return best;
+}
+
+__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
+  return (uint32_t)a | (uint32_t)b << 8 | (uint32_t)c << 16 | (uint32_t)d << 24;
+}
+
+__device__ __forceinline__ void unpack4(uint32_t w, int* p) {
+  p[0] = w & 255u; p[1] = (w >> 8) & 255u;
+  p[2] = (w >> 16) & 255u; p[3] = w >> 24;
+}
+
+// Warps 0..3 code the four 4x4-block rows of an MB row; warp 4 fetches the
+// pixel line above the MB row from the row above's output; warp 5 writes
+// the row's own bottom pixel line out and publishes it to the row below.
+constexpr int kRowThreads = 192;
+
+// One CTA per MB row; warp w < 4 walks block row by = 4*row + w left to
+// right.  Shared memory: the row's 16 source lines, then 5 lines of w4+1
+// words: line 0 is the pixel line above the MB row (127s in the top row;
+// its last word replicates the frame's last pixel, the VP8 rule for the
+// above-right of the last block column), line k+1 the bottom pixel line
+// of block row k; then each warp's predictor values.  s_prog[k] counts
+// the words of line k that are final.  sync: mbh progress counters and the
+// row ticket, all 0 at launch.
+__global__ void __launch_bounds__(kRowThreads)
+    luma_rows_kernel(const uint8_t* __restrict__ y, uint8_t* rec,
+                     int16_t* levels, int8_t* modes, int* sync, int w4,
+                     int mbh, int dc, int ac) {
+  const Quant dc_q = make_quant(dc), ac_q = make_quant(ac);
+  extern __shared__ uint4 smem[];
+  __shared__ int s_row;
+  __shared__ int s_prog[5];
+  __shared__ int s_vals[4][kPredVals];
+  if (threadIdx.x == 0) s_row = atomicAdd(sync + mbh, 1);
+  __syncthreads();
+  const int r = s_row;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int W = w4 * 4, lp = w4 + 1;
+  uint32_t* src = reinterpret_cast<uint32_t*>(smem);          // 16 x w4
+  uint32_t* ln = src + 16 * w4;                               // 5 x lp
+  {
+    const uint4* g = reinterpret_cast<const uint4*>(y + (size_t)r * 16 * W);
+    for (int i = threadIdx.x; i < 4 * w4; i += kRowThreads)
+      smem[i] = __ldg(g + i);
+    if (r == 0)
+      for (int i = threadIdx.x; i < lp; i += kRowThreads) ln[i] = 0x7f7f7f7fu;
+    if (threadIdx.x < 5)
+      s_prog[threadIdx.x] = threadIdx.x == 0 && r == 0 ? w4 : 0;
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // The row above's bottom line into line 0, as far as that row has
+    // come: off the coding warps' chain, which only ever wait on shared
+    // memory.  Read from L2 (__ldcg) behind the acquire, never from L1.
+    if (r == 0) return;
+    const uint32_t* g_above =
+        reinterpret_cast<const uint32_t*>(rec + (size_t)(16 * r - 1) * W);
+    int have = 0;
+    while (have < w4) {
+      const int seen = wait_above<true>(sync + r - 1, have, lane);
+      for (int i = have + lane; i < seen; i += 32) ln[i] = __ldcg(g_above + i);
+      __syncwarp();
+      if (seen == w4 && lane == 0) ln[w4] = (ln[w4 - 1] >> 24) * 0x01010101u;
+      post<false>(s_prog, seen, lane);
+      have = seen;
+    }
+    return;
+  }
+  if (warp == 5) {
+    // The bottom pixel line, as far as block row 3 has come, to the output
+    // plane, and then the count of its final words to the row below
+    // (st.release at device scope; the other lanes' stores are ordered
+    // before it by __syncwarp).  The store's way to L2 is this warp's wait,
+    // not a coding warp's.
+    uint32_t* g_bot =
+        reinterpret_cast<uint32_t*>(rec + (size_t)(16 * r + 15) * W);
+    const uint32_t* bot = ln + 4 * lp;
+    int have = 0;
+    while (have < w4) {
+      const int seen = wait_above<false>(s_prog + 4, have, lane);
+      for (int i = have + lane; i < seen; i += 32) g_bot[i] = bot[i];
+      if (r + 1 < mbh) post<true>(sync + r, seen, lane);
+      have = seen;
+    }
+    return;
+  }
+
+  const int by = 4 * r + warp;
+  const uint32_t* up = ln + warp * lp;        // the line above my block row
+  uint32_t* mine = ln + (warp + 1) * lp;      // my block row's bottom line
+  uint32_t* g_rec = reinterpret_cast<uint32_t*>(rec + (size_t)by * 4 * W);
+  const uint32_t* tab = kPredTab[lane < 10 ? lane : 0];
+  const uint32_t tb[4] = {tab[0], tab[1], tab[2], tab[3]};
+  int seen = 0;                               // s_prog[warp], as last read
+  uint32_t wl = 0x81818181u;                  // left of the frame: 129
+  for (int bx = 0; bx < w4; ++bx) {
+    // block (bx, by) needs (bx+1, by-1): the above-right neighbour
+    const int need = bx + 2 < w4 ? bx + 2 : w4;
+    if (seen < need) seen = wait_above<false>(s_prog + warp, need - 1, lane);
+    const uint32_t a03 = up[bx];
+    const uint32_t a47 = (bx & 3) < 3 || warp == 0 ? up[bx + 1] : ln[bx + 1];
+    const int P = by == 0 ? 127 : (bx == 0 ? 129 : (int)(up[bx - 1] >> 24));
+    int s[16];
+    for (int k = 0; k < 4; ++k) unpack4(src[(4 * warp + k) * w4 + bx], s + 4 * k);
+
+    int lev[16], out[16];
+    const int best = search_and_code_warp(s, wl, a03, a47, P, dc_q, ac_q, lane,
+                                          tb, s_vals[warp], lev, out);
+    wl = pack4(out[15], out[11], out[7], out[3]);
+    // release the block: its bottom line to the warp below or, from the
+    // last block row, to warp 5, through shared memory
+    const uint32_t w0 = pack4(out[0], out[1], out[2], out[3]),
+                   w1 = pack4(out[4], out[5], out[6], out[7]),
+                   w2 = pack4(out[8], out[9], out[10], out[11]),
+                   w3 = pack4(out[12], out[13], out[14], out[15]);
+    if (lane == 0) mine[bx] = w3;
+    if (lane < 4 && (lane > 0 || warp < 3))   // warp 5 stores the MB's last
+      g_rec[(lane == 0 ? 3 : lane - 1) * w4 + bx] =
+          lane == 0 ? w3 : (lane == 1 ? w0 : (lane == 2 ? w1 : w2));
+    post<false>(s_prog + warp + 1, bx + 1, lane);
+    // behind the release: levels (zigzag) and the mode
+    const int sub = warp * 4 + (bx & 3);
+    const size_t blk = ((size_t)r * (w4 / 4) + bx / 4) * 16 + sub;
+    if (lane < 2) {
+      constexpr int zz[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11,
+                              14, 15};        // raster index of zigzag pos
+      uint32_t h[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        h[i] = (uint32_t)(uint16_t)(int16_t)lev[zz[2 * i]] |
+               (uint32_t)(uint16_t)(int16_t)lev[zz[2 * i + 1]] << 16;
+      uint4 v = lane == 0 ? make_uint4(h[0], h[1], h[2], h[3])
+                          : make_uint4(h[4], h[5], h[6], h[7]);
+      reinterpret_cast<uint4*>(levels + blk * 16)[lane] = v;
+    }
+    if (lane == 2) modes[blk] = (int8_t)best;
   }
 }
 
@@ -337,8 +552,9 @@ __global__ void __launch_bounds__(kLumaThreads)
 // levels: (2, mbc, 4, 16).
 __global__ void __launch_bounds__(1024)
     chroma_wavefront_kernel(const uint8_t* __restrict__ uv, uint8_t* rec,
-                            int16_t* levels, int mbw, int mbh, int dc_q,
-                            int ac_q) {
+                            int16_t* levels, int mbw, int mbh, int dc,
+                            int ac) {
+  const Quant dc_q = make_quant(dc), ac_q = make_quant(ac);
   const int W2 = mbw * 8, plane_px = W2 * mbh * 8, mbc = mbw * mbh;
   const int D = mbw + mbh - 1;
   const int n = 2 * mbh * 4;
@@ -399,7 +615,8 @@ __global__ void __launch_bounds__(kTrialThreads)
                       const uint8_t* __restrict__ ftop,
                       const uint8_t* __restrict__ fleft,
                       int16_t* __restrict__ levels, int8_t* __restrict__ modes,
-                      uint8_t* __restrict__ rec, int mbc, int dc_q, int ac_q) {
+                      uint8_t* __restrict__ rec, int mbc, int dc, int ac) {
+  const Quant dc_q = make_quant(dc), ac_q = make_quant(ac);
   __shared__ uint8_t trial[256 * kTrialThreads];
   const int mb = blockIdx.x * kTrialThreads + threadIdx.x;
   if (mb >= mbc) return;
@@ -455,12 +672,15 @@ int threads_for(int n, int most) {
 }  // namespace
 
 extern "C" int vp8_luma_wavefront(const void* y, void* recon, void* levels,
-                                  void* modes, int w4, int h4, int dc_q,
-                                  int ac_q, void* stream) {
-  luma_wavefront_kernel<<<1, threads_for(h4, kLumaThreads), 0,
-                          (cudaStream_t)stream>>>(
+                                  void* modes, void* sync, int w4, int h4,
+                                  int dc_q, int ac_q, void* stream) {
+  const int smem = (16 * w4 + 5 * (w4 + 1)) * 4;
+  cudaError_t e = cudaFuncSetAttribute(
+      luma_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  luma_rows_kernel<<<h4 / 4, kRowThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)y, (uint8_t*)recon, (int16_t*)levels, (int8_t*)modes,
-      w4, h4, dc_q, ac_q);
+      (int*)sync, w4, h4 / 4, dc_q, ac_q);
   return (int)cudaGetLastError();
 }
 

@@ -26,12 +26,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "intra": {
-        "vp8_luma_wavefront": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "vp8_luma_wavefront": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "vp8_chroma_wavefront": [_P, _P, _P, _I, _I, _I, _I, _P],
         "vp8_trial_luma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "loopfilter": {
-        "vp8_loop_filter": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "vp8_loop_filter": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _P],
     },
     "search": {
         "vp8_fullpel_search": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -60,10 +61,12 @@ def _so(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """No library yet, or one older than its source or a shared header."""
     so = _so(name)
-    src = os.path.join(SRC_DIR, name + ".cu")
-    return not os.path.exists(so) or \
-        os.path.getmtime(so) < os.path.getmtime(src)
+    deps = [name + ".cu"] + [f for f in os.listdir(SRC_DIR)
+                             if f.endswith(".cuh")]
+    return not os.path.exists(so) or os.path.getmtime(so) < max(
+        os.path.getmtime(os.path.join(SRC_DIR, f)) for f in deps)
 
 
 def _start(name: str, tmpdir: str):

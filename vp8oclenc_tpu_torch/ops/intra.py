@@ -2,7 +2,10 @@
 ops/intra.py.
 
 Luma is sequential 4x4 B_PRED with the VP8 border rules, scheduled as the
-anti-diagonal wavefront d = bx + 2*by over the 4x4-block grid: a block
+anti-diagonal wavefront d = bx + 2*by over the 4x4-block grid
+(`luma_step` on the blocks of one diagonal; the kernel orders them by the
+weaker rule "block (bx, by) after (bx+1, by-1)", which
+tests/test_torch_wavefront_order.py holds against this one): a block
 reads only its left, above and above-right neighbours (the above-right of
 an MB's last block column comes from the row above the whole MB), all of
 which lie on earlier diagonals.  Chroma is whole-MB TM_PRED for U and V
@@ -80,6 +83,48 @@ def _mb_order(a: torch.Tensor, h4: int, w4: int) -> torch.Tensor:
         .reshape((h4 // 4) * mbw, 16, *tail)
 
 
+def luma_state(y: torch.Tensor):
+    """The working state of a frame's luma encode: source blocks, the int32
+    reconstruction (zeros where nothing is coded yet) and the per-block
+    levels and modes, filled by `luma_step`."""
+    H, W = y.shape
+    h4, w4 = H // 4, W // 4
+    dev = y.device
+    return {"src4": y.to(_I32).reshape(h4, 4, w4, 4),
+            "rec": torch.zeros((H, W), dtype=_I32, device=dev),
+            "levels": torch.zeros((h4, w4, 16), dtype=_I32, device=dev),
+            "modes": torch.zeros((h4, w4), dtype=_I32, device=dev)}
+
+
+def luma_step(st, by, bx, dc_q: int, ac_q: int) -> None:
+    """Code the 4x4 blocks (by, bx) (index tensors of one length) of the
+    state `st`.  A block's left, above and above-right neighbours (for an
+    MB's last block column: the row above the MB) must be coded, and the
+    blocks of one call must not be neighbours of each other."""
+    rec = st["rec"]
+    h4, _, w4, _ = st["src4"].shape
+    A, L, P = _luma_neighbors(rec, by, bx, w4)
+    src = st["src4"][by, :, bx, :]                          # (K, 4, 4)
+    preds = bpred_all_modes(A, L, P)                        # (K, 10, 4, 4)
+    mode = _first_min(T.dct_weight(src[:, None] - preds))
+    pred = preds[torch.arange(len(by), device=rec.device), mode]
+    lev = T.quant4x4(T.fdct4x4(src - pred), dc_q, ac_q)
+    rec.view(h4, 4, w4, 4)[by, :, bx, :] = torch.clamp(
+        T.idct4x4(T.dequant4x4(lev, dc_q, ac_q)) + pred, 0, 255)
+    st["levels"][by, bx] = T.zigzag(lev)
+    st["modes"][by, bx] = mode
+
+
+def luma_result(st):
+    """(recon u8, levels i16, modes i8) of a finished state, in the layout
+    of `luma_wavefront_plain`."""
+    h4, _, w4, _ = st["src4"].shape
+    return (st["rec"].to(torch.uint8),
+            _mb_order(st["levels"].reshape(h4 * w4, 16), h4, w4)
+            .to(torch.int16),
+            _mb_order(st["modes"].reshape(h4 * w4), h4, w4).to(torch.int8))
+
+
 def luma_wavefront_plain(y: torch.Tensor, dc_q: int, ac_q: int):
     """Sequential 4x4 B_PRED encode of a (h4*4, w4*4) u8 luma plane.
 
@@ -87,32 +132,14 @@ def luma_wavefront_plain(y: torch.Tensor, dc_q: int, ac_q: int):
     blocks in in-MB raster order, modes (mbc, 16) i8)."""
     H, W = y.shape
     h4, w4 = H // 4, W // 4
-    dev = y.device
-    src4 = y.to(_I32).reshape(h4, 4, w4, 4)
-    rec = torch.zeros((H, W), dtype=_I32, device=dev)
-    rec4 = rec.view(h4, 4, w4, 4)
-    levels = torch.zeros((h4, w4, 16), dtype=_I32, device=dev)
-    modes = torch.zeros((h4, w4), dtype=_I32, device=dev)
-    bands = torch.arange(h4, device=dev)
+    st = luma_state(y)
+    bands = torch.arange(h4, device=y.device)
     D = (w4 - 1) + 2 * (h4 - 1) + 1
     for d in range(D):
         lo = max(0, (d - (w4 - 1) + 1) // 2)
-        hi = min(h4 - 1, d // 2)
-        by = bands[lo:hi + 1]
-        bx = d - 2 * by
-        A, L, P = _luma_neighbors(rec, by, bx, w4)
-        src = src4[by, :, bx, :]                             # (K, 4, 4)
-        preds = bpred_all_modes(A, L, P)                    # (K, 10, 4, 4)
-        mode = _first_min(T.dct_weight(src[:, None] - preds))
-        pred = preds[torch.arange(len(by), device=dev), mode]
-        lev = T.quant4x4(T.fdct4x4(src - pred), dc_q, ac_q)
-        rec4[by, :, bx, :] = torch.clamp(
-            T.idct4x4(T.dequant4x4(lev, dc_q, ac_q)) + pred, 0, 255)
-        levels[by, bx] = T.zigzag(lev)
-        modes[by, bx] = mode
-    return (rec.to(torch.uint8),
-            _mb_order(levels.reshape(h4 * w4, 16), h4, w4).to(torch.int16),
-            _mb_order(modes.reshape(h4 * w4), h4, w4).to(torch.int8))
+        by = bands[lo:min(h4 - 1, d // 2) + 1]
+        luma_step(st, by, d - 2 * by, dc_q, ac_q)
+    return luma_result(st)
 
 
 def chroma_wavefront_plain(uv: torch.Tensor, dc_q: int, ac_q: int):
@@ -183,12 +210,18 @@ def luma_wavefront(y: torch.Tensor, dc_q: int, ac_q: int):
         raise ValueError(f"luma_wavefront: {W}x{H} is not MB-aligned")
     from vp8oclenc_tpu_torch.ops import cuda_build
     mbc = (H // 16) * (W // 16)
+    if y.data_ptr() % 16:           # the kernel loads 16 bytes at a time
+        y = y.clone()
     recon = torch.empty_like(y)
     levels = torch.empty((mbc, 16, 16), dtype=torch.int16, device=y.device)
     modes = torch.empty((mbc, 16), dtype=torch.int8, device=y.device)
+    # the kernel's per-MB-row progress counters and its row ticket: a fresh
+    # zeroed buffer per call (one fill on the caller's stream, no host
+    # sync), so frames in flight never share counters
+    sync = torch.zeros(H // 16 + 1, dtype=torch.int32, device=y.device)
     rc = cuda_build.library("intra").vp8_luma_wavefront(
-        _ptr(y), _ptr(recon), _ptr(levels), _ptr(modes), W // 4, H // 4,
-        int(dc_q), int(ac_q), _stream(y))
+        _ptr(y), _ptr(recon), _ptr(levels), _ptr(modes), _ptr(sync), W // 4,
+        H // 4, int(dc_q), int(ac_q), _stream(y))
     cuda_build.check(rc, "vp8_luma_wavefront")
     luma_wavefront.launches += 1
     return recon, levels, modes

@@ -10,8 +10,13 @@ order is the decoder's: left MB edge, inner vertical edges, top MB edge,
 inner horizontal edges.
 
 `filter_planes_plain` is plain PyTorch, one vectorized pass per edge and
-stage, on any device; `filter_planes` launches the csrc/loopfilter.cu
-kernel for CUDA tensors and takes the plain version for CPU tensors.
+stage (`filter_step` on the MBs of one diagonal), on any device;
+`filter_planes` launches the csrc/loopfilter.cu kernel for CUDA tensors and
+takes the plain version for CPU tensors.  The kernel is out of place: it
+reads the unfiltered planes and writes new ones.  It orders the MBs by a
+weaker rule than the diagonal (MB row r takes MB bx once row r-1 is past
+bx+1); tests/test_torch_wavefront_order.py holds that rule against the
+plain version through `filter_step`.
 """
 from __future__ import annotations
 
@@ -114,6 +119,56 @@ def _filter_edges(S, n: int, y0, x0, vertical: bool, off: int, kind: str,
     S[rows[..., lo:8 - lo], cols[..., lo:8 - lo]] = new
 
 
+def filter_state(ry, ru, rv, seg_of_mb, inner_mask, levels, mbe, sbe, intr,
+                 hev):
+    """The working state of a frame's filter: the planes as int32 in the
+    -128..127 domain (filtered in place by `filter_step`) with their MB
+    sizes, and the per-MB and per-segment parameters on the planes'
+    device."""
+    dev = ry.device
+    planes = [(p.to(_I32) - 128, 16 if k == 0 else 8)
+              for k, p in enumerate((ry, ru, rv))]
+    seg_of_mb = seg_of_mb.to(device=dev, dtype=torch.long)
+    inner_mask = inner_mask.to(device=dev, dtype=torch.bool)
+    lim = [t.to(device=dev, dtype=_I32) for t in (levels, mbe, sbe, intr, hev)]
+    return planes, seg_of_mb, inner_mask, lim, ry.shape[1] // 16
+
+
+def filter_step(state, by, bx) -> None:
+    """Filter the MBs (by, bx) (index tensors of one length) in all three
+    planes of `state`, in place.  The MBs of one call must touch disjoint
+    pixels; the caller keeps the decoder's dependencies: before (by, bx)
+    come (by, bx-1) and (by-1, bx+1) (whose left edge writes into
+    (by-1, bx)), and through them everything above and to the left."""
+    planes, seg_of_mb, inner_mask, lim, mbw = state
+    mbn = by * mbw + bx
+    sid = seg_of_mb[mbn]
+    on = lim[0][sid] > 0
+    left = on & (bx > 0)
+    top = on & (by > 0)
+    inner = on & inner_mask[mbn]
+    for S, n in planes:
+        def edges(sel, vertical, off, kind):
+            if not bool(sel.any()):
+                return
+            s = sid[sel]
+            e = lim[1][s] if kind == "mb" else lim[2][s]
+            _filter_edges(S, n, by[sel] * n, bx[sel] * n, vertical, off,
+                          kind, (e, lim[3][s], lim[4][s]))
+        edges(left, True, 0, "mb")
+        for off in range(4, n, 4):
+            edges(inner, True, off, "b")
+        edges(top, False, 0, "mb")
+        for off in range(4, n, 4):
+            edges(inner, False, off, "b")
+
+
+def filter_result(state):
+    """The u8 planes of a filter state."""
+    return tuple((S + 128).clamp(0, 255).to(torch.uint8)
+                 for S, _ in state[0])
+
+
 def filter_planes_plain(ry, ru, rv, seg_of_mb, inner_mask, levels, mbe, sbe,
                         intr, hev):
     """Whole-frame loop filter of u8 planes ry (H, W), ru/rv (H/2, W/2).
@@ -124,39 +179,22 @@ def filter_planes_plain(ry, ru, rv, seg_of_mb, inner_mask, levels, mbe, sbe,
     An MB whose segment level is 0 is skipped.  Returns new u8 planes."""
     H, W = ry.shape
     mbh, mbw = H // 16, W // 16
-    dev = ry.device
-    planes = [(p.to(_I32) - 128, 16 if k == 0 else 8)
-              for k, p in enumerate((ry, ru, rv))]
-    seg_of_mb = seg_of_mb.to(device=dev, dtype=torch.long)
-    inner_mask = inner_mask.to(device=dev, dtype=torch.bool)
-    lim = [t.to(device=dev, dtype=_I32) for t in (levels, mbe, sbe, intr, hev)]
-    bands = torch.arange(mbh, device=dev)
+    state = filter_state(ry, ru, rv, seg_of_mb, inner_mask, levels, mbe, sbe,
+                         intr, hev)
+    bands = torch.arange(mbh, device=ry.device)
     D = (mbw - 1) + 2 * (mbh - 1) + 1
     for d in range(D):
         lo = max(0, (d - (mbw - 1) + 1) // 2)
         by = bands[lo:min(mbh - 1, d // 2) + 1]
-        bx = d - 2 * by
-        mbn = by * mbw + bx
-        sid = seg_of_mb[mbn]
-        on = lim[0][sid] > 0
-        left = on & (bx > 0)
-        top = on & (by > 0)
-        inner = on & inner_mask[mbn]
-        for S, n in planes:
-            def edges(sel, vertical, off, kind):
-                if not bool(sel.any()):
-                    return
-                s = sid[sel]
-                e = lim[1][s] if kind == "mb" else lim[2][s]
-                _filter_edges(S, n, by[sel] * n, bx[sel] * n, vertical, off,
-                              kind, (e, lim[3][s], lim[4][s]))
-            edges(left, True, 0, "mb")
-            for off in range(4, n, 4):
-                edges(inner, True, off, "b")
-            edges(top, False, 0, "mb")
-            for off in range(4, n, 4):
-                edges(inner, False, off, "b")
-    return tuple((S + 128).clamp(0, 255).to(torch.uint8) for S, _ in planes)
+        filter_step(state, by, d - 2 * by)
+    return filter_result(state)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor at a 16-byte boundary (a slice of a packed
+    buffer may lie elsewhere; the kernel loads 16 bytes at a time)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def filter_planes(ry, ru, rv, seg_of_mb, inner_mask, levels, mbe, sbe, intr,
@@ -184,15 +222,20 @@ def filter_planes(ry, ru, rv, seg_of_mb, inner_mask, levels, mbe, sbe, intr,
                       for t in (levels, mbe, sbe, intr, hev)]).contiguous()
     if seg.shape != (mbc,) or inner.shape != (mbc,) or lf.shape != (5, 4):
         raise ValueError("filter_planes: bad per-MB or per-segment shapes")
-    fy, fu, fv = ry.contiguous().clone(), ru.contiguous().clone(), \
-        rv.contiguous().clone()
+    src = [_aligned(t) for t in (ry, ru, rv)]
+    out = [torch.empty_like(t) for t in src]
+    # the kernel's 3 progress counters per MB row and its row ticket: a
+    # fresh zeroed buffer per call (one fill on the caller's stream, no
+    # host sync), so frames in flight never share counters
+    sync = torch.zeros(3 * (H // 16) + 1, dtype=torch.int32, device=dev)
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     rc = cuda_build.library("loopfilter").vp8_loop_filter(
-        p(fy), p(fu), p(fv), p(seg), p(inner), p(lf), W // 16, H // 16,
+        *map(p, src), *map(p, out), p(seg), p(inner), p(lf), p(sync),
+        W // 16, H // 16,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     cuda_build.check(rc, "vp8_loop_filter")
     filter_planes.launches += 1
-    return fy, fu, fv
+    return tuple(out)
 
 
 filter_planes.launches = 0
