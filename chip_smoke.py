@@ -3,23 +3,29 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the result line):
-  1. device: the card's name and power limit (nvidia-smi);
+  1. device: the card's name and power limit (nvidia-smi); the integer
+     instruction rate the bounds use, reckoned as SMs x 64 lanes x the SM
+     clock (the SM count from torch, the clock from nvidia-smi) and
+     measured beside it with a probe kernel of independent integer chains;
   2. build: every kernel of csrc/ with nvcc (one process per source, in
-     parallel), and the host entropy packer with g++;
+     parallel), and the host entropy packer with g++; ptxas's registers and
+     spills for every kernel go to the log;
   3. kernels: each intra and loop-filter kernel against its plain PyTorch
      version on the same card at 1920x1088, on synthetic planes made from a
-     seed at two quantizer pairs, the luma wavefront and the loop filter
-     (one CTA per MB row, rows pipelined through progress counters) five
-     launches each, every one compared; the two again on a 64x2176 plane
-     (136 MB rows, more than the card has SMs), on 16x16, 16x1088 and
-     1920x16 planes, with a mixed inner-edge mask and two segments of which
-     one has level 0; their time on one MB row of width 1920, which no row
-     above holds up, scaled to the frame's chain of steps (the "chain"
-     figure: what of the 1080p time is step latency, the rest is waiting
-     for the row above); then the full-pel and quarter-pel search
-     kernels against theirs on the real pyramid levels 4..0 of two
-     contents (a panned canvas searched level by level, and noise searched
-     from random vectors that reach past the frame edges); then the
+     seed at two quantizer pairs, the three row pipelines (luma wavefront,
+     chroma wavefront, loop filter: one CTA per MB row, rows pipelined
+     through progress counters) five launches each, every one compared;
+     the three again on a 64x2176 frame (136 MB rows, more than the card
+     has SMs; chroma also as two 32x2176 planes, 272 rows), on 16x16,
+     16x1088 and 1920x16 frames, with a mixed inner-edge mask and two
+     segments of which one has level 0; their time on one MB row of width
+     1920, which no row above holds up, scaled to the frame's chain of
+     steps (the "chain" figure: what of the 1080p time is step latency,
+     the rest is waiting for the row above); then the full-pel and
+     quarter-pel search kernels against theirs on the real pyramid levels
+     4..0 of two contents (a panned canvas searched level by level, and
+     noise searched from random vectors that reach past the frame edges),
+     the quarter-pel kernel also at 16x16, 8x40, 56x8 and 64x2176; then the
      frozen-neighbour luma trial against its plain version at 8160 MBs, at
      the AQ, HQ and UQ quantizers of -qmin 50 -qmax 112, on neighbours cut
      from a keyframe-coded plane and on random sources and neighbours with
@@ -66,7 +72,18 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
-INT_OPS_PER_S = 67e12         # H100 SXM non-tensor-core peak (fp32 figure)
+# An SM of compute capability 9.0 has two pipes that take 32-bit integer
+# instructions, 64 lanes each: one runs multiply-adds (IMAD, dp4a; nvcc also
+# sends plain adds there as IMAD.IADD), the other adds, logic, shifts,
+# compares, min/max and byte permutes.  They run side by side, so a
+# stream that splits evenly between them runs at 128 results a clock, which
+# `phase_int_rate` measures; the bounds use that rate, which no integer
+# kernel can beat.
+INT_LANES_PER_PIPE, INT_PIPES = 64, 2
+MAC8_PER_LANE = 4             # 8-bit multiply-adds of one dp4a
+# 32-bit integer instructions a second, all SMs and both pipes: set by
+# `phase_int_rate` from this card's SM count and clock
+INT_OPS_PER_S = None
 W, H = 1920, 1080
 QI_PAIRS = (10, 40)           # keyframe quantizer indices held to the plain
 REPEATS = 5                   # launches of a row kernel, each compared
@@ -90,15 +107,18 @@ OPS_FILTER_LINE = 45
 # The searches: an 8x8 candidate's cost is 64 residuals, four 4x4
 # separable cost transforms (~128 each), four abs/sum/shift tails (~34
 # each) and ~12 for the sums, penalty, bounds and select; a full-pel
-# candidate outside the frame is only bounds-checked (~12).  A qpel block
-# shares its 5 horizontal six-tap passes (5 x 14 x 8 outputs at ~15: six
-# multiply-adds, round, clamp, store) among its candidates; each qpel
-# candidate adds its vertical pass (64 x 15) to the cost; the zero vector
-# adds a 64-pixel copy.
+# candidate outside the frame is only bounds-checked (~12).  A six-tap
+# pixel is six 8-bit multiply-adds (pixels and taps fit a byte: counted at
+# four a lane and clock, the dp4a rate) and ~4 32-bit operations (shift,
+# two clamps, store); at phase 0 it is a copy (1).  A qpel block shares its
+# horizontal passes (4 filtered and 1 copied, 14 x 8 pixels each) among
+# its candidates; each qpel candidate in the frame adds its vertical pass
+# of 64 pixels (a copy where dy is 0) to the cost; the zero vector adds a
+# 64-pixel copy.
 OPS_COST8 = 64 + 4 * 128 + 4 * 34 + 12
 OPS_INVALID = 12
-OPS_QPEL_HPASS = 5 * 14 * 8 * 15
-OPS_QPEL_VPASS = 64 * 15
+OPS_SIXTAP_INT, OPS_SIXTAP_MAC8 = 4, 6
+QPEL_HPASS_FILTERED, QPEL_HPASS_COPIED = 4 * 14 * 8, 14 * 8
 
 
 def log(msg: str) -> None:
@@ -224,9 +244,57 @@ def max_abs_err(xs, ys) -> int:
     return err
 
 
-def bound(nbytes: float, ops: float):
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+def bound(nbytes: float, ops: float, mac8: float = 0.0):
+    """The least time (ms) the card could take: bytes over the memory rate
+    or 32-bit integer operations (plus 8-bit multiply-adds at four an
+    instruction) over the integer instruction rate, whichever is more."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = (ops + mac8 / MAC8_PER_LANE) / INT_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def phase_int_rate(dev):
+    """Set INT_OPS_PER_S from the card (SMs x 2 pipes x 64 lanes x the SM
+    clock) and log the probe kernel's measured rates beside it: multiply-adds
+    alone fill one pipe, adds and exclusive-ors (or all three) both.  A card
+    held below its clock by its power limit shows here as a lower share."""
+    global INT_OPS_PER_S
+    from vp8oclenc_tpu_torch.ops import cuda_build
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    q = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0].split(",")
+    max_mhz, idle_mhz = float(q[0]), float(q[1])
+    one_pipe = sms * INT_LANES_PER_PIPE * max_mhz * 1e6
+    INT_OPS_PER_S = one_pipe * INT_PIPES
+    log(f"  {sms} SMs x {INT_LANES_PER_PIPE} integer lanes x {max_mhz:.0f} "
+        f"MHz (clocks.max.sm; clocks.sm read {idle_mhz:.0f} MHz before the "
+        f"probe) = {one_pipe / 1e12:.3f} x 10^12 integer instructions a "
+        f"second reckoned for one pipe, {INT_OPS_PER_S / 1e12:.3f} for the "
+        f"{INT_PIPES} pipes together (the rate of the bounds)")
+    lib = cuda_build.library("probe")
+    ctas, iters, chains = sms * 8, 4096, 8
+    out = torch.empty(ctas * 256, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for mode, what, per_step, pipes in (
+            (0, "multiply-add", 1.0, 1), (1, "add, xor", 2.0, 2),
+            (2, "multiply-add beside add, xor", 1.5, 2)):
+        def run():
+            cuda_build.check(lib.vp8_int_rate(
+                out.data_ptr(), ctas, iters, mode, 3, 7, stream),
+                "vp8_int_rate")
+        ms = min(cuda_ms(run, reps=5) for _ in range(3))
+        rate = ctas * 256 * chains * iters * per_step / (ms * 1e-3)
+        share = rate / (one_pipe * pipes)
+        log(f"  probe, {what}: {rate / 1e12:.3f} x 10^12 integer "
+            f"instructions a second measured ({share:.1%} of the reckoned "
+            f"rate of {pipes} pipe{'s' if pipes > 1 else ''}; {ms:.3f} ms)")
+    q = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    log(f"  clocks.sm after the probe: {q.splitlines()[0]} MHz")
 
 
 def phase_kernels(dev):
@@ -289,11 +357,10 @@ def phase_kernels(dev):
             if err != 0:
                 raise AssertionError(f"{name} at qi={qi}: kernel differs "
                                      f"from its plain version by {err}")
-            if name != "chroma_wavefront":    # rows race if the rule is off
-                for i in range(REPEATS):
-                    if max_abs_err(kfn(), pout) != 0:
-                        raise AssertionError(f"{name} at qi={qi}: launch "
-                                             f"{i + 2} differs")
+            for i in range(REPEATS):          # rows race if the rule is off
+                if max_abs_err(kfn(), pout) != 0:
+                    raise AssertionError(f"{name} at qi={qi}: launch "
+                                         f"{i + 2} differs")
             ms = cuda_ms(kfn, reps=10)
             pms = cuda_ms(pfn, reps=1, warm=0)
             bms, by = bound(nbytes, ops)
@@ -312,11 +379,15 @@ def phase_kernels(dev):
         # is the chain a 1080p launch cannot go below
         mbw, mbh = Wp // 16, Hp // 16
         y1 = y[:16].contiguous()
+        uv1 = uv[:, :8].contiguous()
         row = [p[:n].contiguous() for p, n in zip(planes, (16, 8, 8))]
         sid1, inner1 = sid[:mbw].contiguous(), inner[:mbw].contiguous()
         for name, fn, row_steps, steps in (
                 ("luma_wavefront", lambda: I.luma_wavefront(y1, ydq, yaq),
                  Wp // 4 + 6, Wp // 4 + 2 * (Hp // 4 - 1)),
+                ("chroma_wavefront",
+                 lambda: I.chroma_wavefront(uv1, cdq, caq),
+                 mbw, mbw + mbh - 1),
                 ("loop_filter",
                  lambda: LF.filter_planes(*row, sid1, inner1, *lf),
                  mbw, mbw + 2 * (mbh - 1))):
@@ -330,9 +401,9 @@ def phase_kernels(dev):
 
 
 def phase_row_shapes(dev):
-    """The two row-pipelined kernels where the pipeline has its edges: more
-    MB rows than SMs, one MB, one MB column, one MB row; the filter with a
-    mixed inner-edge mask and two segments, one of level 0."""
+    """The three row-pipelined kernels where the pipeline has its edges:
+    more MB rows than SMs, one MB, one MB column, one MB row; the filter
+    with a mixed inner-edge mask and two segments, one of level 0."""
     from vp8oclenc_tpu_torch.ops import intra as I
     from vp8oclenc_tpu_torch.ops import loopfilter as LF
 
@@ -355,18 +426,27 @@ def phase_row_shapes(dev):
             raise AssertionError(f"{w}x{h}: the filter changed nothing")
         y = torch.from_numpy(synth_plane(rng, h, w, 0)).to(dev)
         pl = I.luma_wavefront_plain(y, 12, 15)
+        uvs = [torch.stack([torch.from_numpy(synth_plane(rng, h // 2, w // 2,
+                                                         t)).to(dev)
+                            for t in (1, 2)])]
+        if h > 2000:      # the luma plane as two chroma planes: 272 MB rows
+            uvs.append(torch.stack([y[:, :w // 2].contiguous(),
+                                    y[:, w // 2:].contiguous()]))
+        pcs = [I.chroma_wavefront_plain(uv, 12, 15) for uv in uvs]
         for i in range(REPEATS):
-            for name, k, p in (
+            for name, k, p in [
                     ("loop_filter",
                      LF.filter_planes(*planes, sid, inner, *lf), pf),
-                    ("luma_wavefront", I.luma_wavefront(y, 12, 15), pl)):
+                    ("luma_wavefront", I.luma_wavefront(y, 12, 15), pl)] + [
+                    ("chroma_wavefront", I.chroma_wavefront(uv, 12, 15), pc)
+                    for uv, pc in zip(uvs, pcs)]:
                 err = max_abs_err(k, p)
                 if err != 0:
                     raise AssertionError(f"{name} at {w}x{h}, launch "
                                          f"{i + 1}: differs from its plain "
                                          f"version by {err}")
-        log(f"  {w}x{h} ({h // 16} MB rows): loop_filter and luma_wavefront "
-            f"bit-exact over {REPEATS} launches")
+        log(f"  {w}x{h} ({h // 16} MB rows): loop_filter, luma_wavefront and "
+            f"chroma_wavefront bit-exact over {REPEATS} launches")
 
 
 def _fullpel_counts(v0, Hl, Wl):
@@ -386,15 +466,39 @@ def _fullpel_counts(v0, Hl, Wl):
 
 
 def _qpel_valid(fv, Hl, Wl):
-    """Number of in-frame qpel candidates (of 25 per job) of one launch."""
+    """(in-frame qpel candidates of 25 per job, those of them with dy = 0,
+    whose vertical pass is a copy) of one launch."""
     from vp8oclenc_tpu_torch.ops.inter import _block_origins
     cy, cx = _block_origins(Hl // 8, Wl // 8, fv.device)
     d = torch.arange(-2, 3, device=fv.device)
     px = ((cx + fv[..., 0]) * 4)[..., None] + d
     py = ((cy + fv[..., 1]) * 4)[..., None] + d
     okx = ((px >= 0) & (px <= Wl * 4 - 32)).sum(-1)
-    oky = ((py >= 0) & (py <= Hl * 4 - 32)).sum(-1)
-    return int((okx * oky).sum())
+    oky = (py >= 0) & (py <= Hl * 4 - 32)
+    return int((okx * oky.sum(-1)).sum()), int((okx * oky[..., 2]).sum())
+
+
+def _qpel_small_shapes(dev):
+    """The quarter-pel kernel where its staging has its edges: one block, a
+    block column, a block row (a width that is no multiple of 4 among the
+    pyramid levels), and a tall plane; vectors point past every edge."""
+    from vp8oclenc_tpu_torch.ops import inter as IN
+    for w, h in ((16, 16), (8, 40), (56, 8), (10, 8), (64, 2176)):
+        rng = np.random.default_rng(w * h)
+        cur = torch.from_numpy(synth_plane(rng, h, w, 0)).to(dev)
+        refs = torch.stack([torch.from_numpy(synth_plane(rng, h, w, t))
+                            for t in (0, 1, 2)]).to(dev)
+        refs[0] = cur.roll((1, -1), (0, 1))
+        n = (h // 8) * (w // 8)
+        v = rng.integers(-6, 7, (3, n, 2))
+        v[:, 0], v[:, -1] = -6, 6
+        fv = torch.as_tensor(v, dtype=torch.int32, device=dev)
+        err = max_abs_err(IN.qpel_search(cur, refs, fv),
+                          IN.qpel_search_plain(cur, refs, fv))
+        if err != 0:
+            raise AssertionError(f"qpel_search at {w}x{h}: kernel differs "
+                                 f"from its plain version by {err}")
+    log("  qpel_search at 16x16, 8x40, 56x8, 10x8 and 64x2176: bit-exact")
 
 
 def phase_search(dev):
@@ -409,6 +513,7 @@ def phase_search(dev):
     from vp8oclenc_tpu_torch.io.y4m import pad_frame
     from vp8oclenc_tpu_torch.ops import inter as IN
 
+    _qpel_small_shapes(dev)
     contents = {"moving": synth_moving(4, seed=3),
                 "edges": synth_frames(4, seed=5)}
     rows = {}
@@ -470,12 +575,14 @@ def phase_search(dev):
         ms = cuda_ms(lambda: IN.qpel_search(c, r, fv), reps=10)
         pms = cuda_ms(lambda: IN.qpel_search_plain(c, r, fv), reps=1, warm=0)
         jobs = fv.shape[0] * fv.shape[1]
-        valid = _qpel_valid(fv, Hl, Wl)
+        valid, copied = _qpel_valid(fv, Hl, Wl)
+        filtered = jobs * QPEL_HPASS_FILTERED + (valid - copied) * 64
         nbytes = c.numel() + r.numel() + fv.numel() * 4 + jobs * (8 + 4 + 64)
-        ops = jobs * (OPS_QPEL_HPASS + OPS_COST8 + 64) \
-            + valid * (OPS_QPEL_VPASS + OPS_COST8) \
+        ops = jobs * (QPEL_HPASS_COPIED + OPS_COST8 + 64) \
+            + valid * OPS_COST8 + copied * 64 \
+            + filtered * OPS_SIXTAP_INT \
             + (jobs * 25 - valid) * OPS_INVALID
-        bms, by = bound(nbytes, ops)
+        bms, by = bound(nbytes, ops, filtered * OPS_SIXTAP_MAC8)
         moved = float((k[0] != 0).any(-1).float().mean())
         log(f"  qpel_search {label} ({jobs} jobs, {valid} of {jobs * 25} "
             f"qpel candidates in frame, {moved:.1%} nonzero vectors): "
@@ -940,6 +1047,8 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     if not packer.available():
         raise AssertionError("the native host packer did not build")
+    log("[device] integer instruction rate")
+    phase_int_rate(dev)
 
     log("[kernels] CUDA kernel vs plain version at 1920x1088")
     rows = phase_kernels(dev)

@@ -87,8 +87,15 @@ def test_more_mb_rows_than_sms(dev):
     row CTAs cannot all be resident, and a row still only waits for a row
     that is running."""
     w, h = 64, 2176
-    y = torch.from_numpy(_planes(w, h, 5)[0]).to(dev)
+    y, u, v = (torch.from_numpy(a).to(dev) for a in _planes(w, h, 5))
     k, p = I.luma_wavefront(y, 12, 15), I.luma_wavefront_plain(y, 12, 15)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    # chroma of a 64x4352 frame: 272 chroma MB rows of 4 MBs
+    uv = torch.stack([y[:, :32].contiguous(), y[:, 32:].contiguous()])
+    k, p = I.chroma_wavefront(uv, 12, 15), I.chroma_wavefront_plain(uv, 12, 15)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    uv = torch.stack([u, v])
+    k, p = I.chroma_wavefront(uv, 12, 15), I.chroma_wavefront_plain(uv, 12, 15)
     assert all(torch.equal(a, b) for a, b in zip(k, p))
     args = _filter_args(w, h, 6, dev)
     k, p = LF.filter_planes(*args), LF.filter_planes_plain(*args)
@@ -102,12 +109,16 @@ def test_repeated_launches_agree(dev):
     and inner-less MBs are cheap): a wrong wait rule or a stale read shows
     as a launch that differs."""
     w, h = 640, 368
-    y = torch.from_numpy(_planes(w, h, 8)[0]).to(dev)
+    y, u, v = (torch.from_numpy(a).to(dev) for a in _planes(w, h, 8))
+    uv = torch.stack([u, v])
     args = _filter_args(w, h, 9, dev)
     pl, pf = I.luma_wavefront_plain(y, 20, 26), LF.filter_planes_plain(*args)
+    pc = I.chroma_wavefront_plain(uv, 20, 26)
     for _ in range(5):
         assert all(torch.equal(a, b)
                    for a, b in zip(I.luma_wavefront(y, 20, 26), pl))
+        assert all(torch.equal(a, b)
+                   for a, b in zip(I.chroma_wavefront(uv, 20, 26), pc))
         assert all(torch.equal(a, b)
                    for a, b in zip(LF.filter_planes(*args), pf))
     torch.cuda.synchronize()
@@ -115,7 +126,8 @@ def test_repeated_launches_agree(dev):
 
 def test_filter_takes_unaligned_planes(dev):
     """Planes cut from a packed buffer at an odd offset are copied to a
-    16-byte boundary by the wrapper, not refused."""
+    16-byte boundary by the wrapper, not refused (the quarter-pel kernel
+    falls back to byte loads)."""
     w, h = 48, 32
     args = _filter_args(w, h, 3, dev)
     want = LF.filter_planes_plain(*args)
@@ -128,6 +140,18 @@ def test_filter_takes_unaligned_planes(dev):
     y = args[0]
     assert all(torch.equal(a, b) for a, b in zip(
         I.luma_wavefront(y, 9, 11), I.luma_wavefront_plain(y, 9, 11)))
+    buf = torch.empty(2 * 16 * 24 + 1, dtype=torch.uint8, device=dev)
+    buf[1:] = args[0].reshape(-1)[:2 * 16 * 24]
+    uv = buf[1:].view(2, 16, 24)
+    assert all(torch.equal(a, b) for a, b in zip(
+        I.chroma_wavefront(uv, 9, 11), I.chroma_wavefront_plain(uv, 9, 11)))
+    fv = torch.zeros((1, (h // 8) * (w // 8), 2), dtype=torch.int32,
+                     device=dev)
+    fv[0, ::2] = 1
+    refs = args[0].flip(1).contiguous()[None]
+    assert refs.data_ptr() % 4 == 0 and y.data_ptr() % 4
+    assert all(torch.equal(a, b) for a, b in zip(
+        IN.qpel_search(y, refs, fv), IN.qpel_search_plain(y, refs, fv)))
 
 
 def test_gop1_stream_card_equals_cpu(dev):
@@ -161,11 +185,14 @@ def _moving(w, h, n, seed):
     return frames
 
 
-@pytest.mark.parametrize("size", [(96, 80), (80, 64), (48, 96)])
+@pytest.mark.parametrize("size", [(96, 80), (80, 64), (48, 96), (16, 16),
+                                  (8, 40), (56, 8), (64, 2176)])
 def test_search_kernels_match_plain(dev, size):
     """Both search kernels on every pyramid level that holds a block, with
     vectors large enough that windows and candidates cross the frame edge,
-    with and without the penalty."""
+    with and without the penalty.  The small sizes are one block, one block
+    column and one block row (levels whose width is no multiple of 4 among
+    them: the quarter-pel kernel then loads bytes, not words)."""
     w, h = size
     rng = np.random.default_rng(w * h)
     f = _moving(w, h, 4, seed=w)

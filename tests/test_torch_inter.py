@@ -124,6 +124,132 @@ def test_search_qpel_matches(size):
     _eq(pred, jp, "best_pred")
 
 
+def test_sixtap_phases_of_the_qpel_kernel():
+    """What the quarter-pel CUDA kernel's filter arithmetic rests on: a
+    step of +-2 quarter pels only reaches phases 0, 2, 4, 6 of the six-tap
+    table; phase 0 is the identity, under the table's own rounding and
+    under the kernel's 64 x with (s + 32) >> 6; every tap of phases 2, 4, 6
+    fits a signed byte (a dp4a operand)."""
+    from vp8oclenc_tpu_torch.tables import SIXTAP_FILTERS
+    taps = np.asarray(SIXTAP_FILTERS, np.int64)
+    assert sorted({(d & 3) * 2 for d in range(-2, 3)}) == [0, 2, 4, 6]
+    x = np.arange(256)
+    assert taps[0].tolist() == [0, 0, 128, 0, 0, 0]
+    assert np.array_equal(np.clip((128 * x + 64) >> 7, 0, 255), x)
+    assert np.array_equal((64 * x + 32) >> 6, x)
+    for ph in (2, 4, 6):
+        assert taps[ph].min() >= -128 and taps[ph].max() <= 127
+        assert taps[ph].sum() == 128
+
+
+def _dp4a(px, taps, acc):
+    """Four unsigned bytes times four signed bytes, plus acc (int64)."""
+    return acc + (px.astype(np.int64) * np.asarray(taps, np.int64)).sum(-1)
+
+
+def _qpel_kernel_model(cur, refs, fv):
+    """The pass order of csrc/search.cu's qpel_kernel in numpy, for every
+    (reference, block) job at once: clamped 14-row window; five horizontal
+    passes (phase 0 a copy) stored transposed in 16-byte columns whose two
+    spare bytes hold junk; the zero-vector block as a sixth slot at bytes
+    2..9; one vertical pass for all 26 candidates in two groups of four
+    taps with the rounding constant as the accumulator (phase 0: 64 x,
+    (s + 32) >> 6); the port's own dct_cost_8x8; one minimum over
+    (cost << 5 | candidate)."""
+    from vp8oclenc_tpu_torch.tables import SIXTAP_FILTERS
+    JUNK = 0xAB
+    taps = np.asarray(SIXTAP_FILTERS, np.int64)
+    R, H, W = refs.shape
+    nbx, n = W // 8, (H // 8) * (W // 8)
+    b = np.arange(n)
+    cy, cx = (b // nbx) * 8, (b % nbx) * 8
+    fx, fy = fv[..., 0].astype(np.int64), fv[..., 1].astype(np.int64)
+    ys = np.clip((cy + fy)[..., None] - 3 + np.arange(14), 0, H - 1)
+    xs = np.clip((cx + fx)[..., None] - 3 + np.arange(16), 0, W - 1)
+    ridx = np.arange(R)[:, None, None, None]
+    win = refs[ridx, ys[..., :, None], xs[..., None, :]]      # (R, n, 14, 16)
+    slots = np.full((6, R, n, 8, 16), JUNK, np.int64)         # [.., col, row]
+    for di in range(5):
+        dx = di - 2
+        xo, ph = (0 if dx < 0 else 1), (dx & 3) * 2
+        for j in range(8):
+            six = win[..., xo + j:xo + j + 8].astype(np.int64)
+            if ph == 0:
+                out = six[..., 2]
+            else:
+                s_ = _dp4a(six[..., :4], taps[ph][:4], 64)
+                s_ = _dp4a(six[..., 4:8], [*taps[ph][4:], 0, 0], s_)
+                out = np.clip(s_ >> 7, 0, 255)
+            slots[di, :, :, j, :14] = out
+    zero = refs[ridx, (cy[:, None] + np.arange(8))[None, :, :, None],
+                (cx[:, None] + np.arange(8))[None, :, None, :]]
+    slots[5, :, :, :, 2:10] = zero.transpose(0, 1, 3, 2)
+    preds = np.empty((R, n, 26, 8, 8), np.int64)
+    key = np.empty((R, n, 26), np.int64)
+    for c in range(26):
+        dx, dy = (c % 5 - 2, c // 5 - 2) if c < 25 else (0, 0)
+        slot = c % 5 if c < 25 else 5
+        yo = 1 if (c < 25 and dy >= 0) else 0
+        ph = (dy & 3) * 2
+        t = taps[ph] if ph else np.array([0, 0, 64, 0, 0, 0])
+        rnd, shr = (64, 7) if ph else (32, 6)
+        col = np.concatenate([slots[slot][..., yo:],
+                              np.zeros((R, n, 8, yo), np.int64)], -1)
+        for i in range(8):
+            s_ = _dp4a(col[..., i:i + 4], t[:4], rnd)
+            s_ = _dp4a(col[..., i + 4:i + 8], [*t[4:], 0, 0], s_)
+            preds[:, :, c, i, :] = np.clip(s_ >> shr, 0, 255)
+    cur_b = cur[(cy[:, None] + np.arange(8))[:, :, None],
+                (cx[:, None] + np.arange(8))[:, None, :]].astype(np.int64)
+    cost = TT.dct_cost_8x8(torch.from_numpy(preds - cur_b[None, :, None])
+                           .to(torch.int32)).numpy().astype(np.int64)
+    pen = np.zeros(26, np.int64)
+    for c in range(26):
+        dx, dy = (c % 5 - 2, c // 5 - 2) if c < 25 else (0, 0)
+        pen[c] = (abs(dx) + abs(dy)) * TI.PEN
+        px, py = (cx + fx) * 4 + dx, (cy + fy) * 4 + dy
+        valid = (px >= 0) & (px <= 4 * W - 32) & (py >= 0) \
+            & (py <= 4 * H - 32) if c < 25 else np.ones((R, n), bool)
+        key[..., c] = np.where(valid, (cost[..., c] + pen[c]) << 5,
+                               0x7fffffe0) | c
+    assert cost.max() + pen.max() < 1 << 18      # the key cannot overflow
+    best = key.min(-1)
+    idx, total = best & 31, best >> 5
+    vx = np.where(idx < 25, fx * 4 + idx % 5 - 2, 0)
+    vy = np.where(idx < 25, fy * 4 + idx // 5 - 2, 0)
+    out_cost = np.where((vx != 0) | (vy != 0), total - pen[idx], total)
+    pred = np.take_along_axis(
+        preds.reshape(R, n, 26, 64), idx[..., None, None], 2)[:, :, 0]
+    return np.stack([vx, vy], -1), out_cost, pred
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_qpel_kernel_model_matches(size):
+    """The CUDA kernel's pass order (its numpy model) gives what
+    `qpel_search_plain` and the JAX package's `search_qpel` give, with
+    full-pel vectors that point candidates past every frame edge."""
+    cur_t, refs_t, cur_j, ref_pyr = _setup(size)
+    H, W = cur_t[0].shape
+    rng = np.random.default_rng(H)
+    fv = rng.integers(-6, 7, (3, H // 8, W // 8, 2)).astype(np.int32)
+    fv[:, 0, 0], fv[:, -1, -1], fv[:, 0, -1] = -6, 6, (6, -6)
+    fv[:, 1] = 0                          # zero-vector ties with candidate 12
+    flat = fv.reshape(3, -1, 2)
+    mv, mc, mp = _qpel_kernel_model(cur_t[0].numpy(), refs_t[0].numpy(), flat)
+    pv, pc, pp = TI.qpel_search_plain(cur_t[0], refs_t[0],
+                                      torch.from_numpy(flat))
+    _eq(pv, mv, "vectors vs plain")
+    _eq(pc, mc, "cost vs plain")
+    _eq(pp, mp, "prediction vs plain")
+    assert (mv != 0).any() and (mv == 0).all(-1).any()
+    plane, pads, _ = ref_pyr[0]
+    jv, jd, jp = _jit(lambda c, p, v: JI.search_qpel(c, p, pads, v))(
+        cur_j[0], plane, jnp.asarray(fv))
+    _eq(mv.reshape(fv.shape), jv, "vectors vs jax")
+    _eq(mc.reshape(fv.shape[:3]), jd, "Bdiff vs jax")
+    _eq(mp.reshape(3, -1, 8, 8), jp, "best_pred vs jax")
+
+
 @pytest.mark.parametrize("size", SIZES)
 def test_hierarchical_search_matches(size):
     cur_t, refs_t, cur_j, ref_pyr = _setup(size, seed=9)

@@ -1,16 +1,20 @@
 """The order in which the CUDA kernels of the loop filter and of the luma
-wavefront take their units, held against the plain versions on the CPU.
+and chroma wavefronts take their units, held against the plain versions on
+the CPU.
 
 The kernels give each MB row to one CTA and let row r take unit bx once row
 r-1 is past bx+1 (for luma the same rule between the 4x4-block rows,
 inside an MB row and across MB rows); rows otherwise run at any speed.
+The chroma kernel's rule is weaker: TM_PRED reads nothing above-right, so
+row r takes MB bx once row r-1 is past bx itself (a lag of 1).
 Here the units run one at a time through the plain versions' step
-functions (`filter_step`, `luma_step`) in seeded random orders drawn from
-exactly what that rule allows, luma from a reconstruction poisoned with a
-sentinel wherever nothing is coded yet.  Every such order must give the
-plain versions' outputs, and the JAX package's, bit for bit (tolerance 0);
-with a lag of 1 instead of 2 the outputs must differ, which shows that the
-test can fail."""
+functions (`filter_step`, `luma_step`, `chroma_step`) in seeded random
+orders drawn from exactly what that rule allows, luma and chroma from a
+reconstruction poisoned with a sentinel wherever nothing is coded yet.
+Every such order must give the plain versions' outputs, and the JAX
+package's, bit for bit (tolerance 0); with a lag of 1 instead of 2 (chroma:
+0 instead of 1) the outputs must differ, which shows that the test can
+fail."""
 import numpy as np
 import pytest
 import torch
@@ -151,4 +155,76 @@ def test_a_lag_of_one_is_not_enough(which):
         want = TI.luma_wavefront_plain(y, 8, 10)
         got = _luma_in_order(y, (8, 10),
                              allowed_order(rng, h // 4, w // 4, 1))
+    assert not torch.equal(got[0], want[0])
+
+
+def _chroma_planes(w, h, seed):
+    """U and V of a w x h frame: noise, and a ramp under a little noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h // 2, 0:w // 2]
+    u = rng.integers(0, 256, (h // 2, w // 2))
+    v = ((xx * 5 + yy * 3 + 60) % 210 + rng.integers(0, 20, (h // 2, w // 2)))
+    return np.stack([u, v.clip(0, 255)]).astype(np.uint8)
+
+
+def _chroma_in_order(uv, q, order):
+    st = TI.chroma_state(uv)
+    st["rec"].fill_(SENTINEL)
+    for by, bx in order:
+        TI.chroma_step(st, torch.tensor([by]), torch.tensor([bx]), *q)
+    return TI.chroma_result(st)
+
+
+def test_chroma_orders_let_a_row_follow_one_mb_behind():
+    order = allowed_order(np.random.default_rng(1), 5, 6, lag=1)
+    at = {u: i for i, u in enumerate(order)}
+    assert all(at[(r - 1, c)] < at[(r, c)] for r, c in order if r)
+    # somewhere row r codes MB c before row r-1 has coded MB c+1
+    assert any(at[(r, c)] < at[(r - 1, c + 1)] for r, c in order
+               if r and c + 1 < 6)
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("seed,q", [(0, (8, 10)), (1, (60, 75))])
+def test_chroma_in_any_allowed_order(size, seed, q):
+    w, h = size
+    uv = torch.from_numpy(_chroma_planes(w, h, seed))
+    order = allowed_order(np.random.default_rng(seed + 30), h // 16, w // 16,
+                          lag=1)
+    got = _chroma_in_order(uv, q, order)
+    want = TI.chroma_wavefront_plain(uv, *q)
+    for g, p in zip(got, want):
+        assert g.dtype == p.dtype and torch.equal(g, p)
+    assert int(got[1].abs().max()) > 0           # something was coded
+
+
+@pytest.mark.parametrize("size", [(48, 96), (96, 80)])
+def test_chroma_in_allowed_order_matches_jax(size):
+    """Against the chroma outputs of the JAX package's intra_body on its
+    XLA path (the CPU's)."""
+    w, h = size
+    q = (8, 10)
+    uvn = _chroma_planes(w, h, 2)
+    order = allowed_order(np.random.default_rng(6), h // 16, w // 16, lag=1)
+    got = _chroma_in_order(torch.from_numpy(uvn), q, order)
+    yn = _luma_plane(w, h, 3)
+    want = build_intra_kernel(w, h)(
+        jnp.asarray(yn), jnp.asarray(uvn[0]), jnp.asarray(uvn[1]),
+        *(jnp.int32(x) for x in (*q, *q)))
+    assert np.array_equal(got[0][0].numpy(), np.asarray(want[1]))
+    assert np.array_equal(got[0][1].numpy(), np.asarray(want[2]))
+    assert np.array_equal(got[1][0].numpy(), np.asarray(want[3])[:, 16:20])
+    assert np.array_equal(got[1][1].numpy(), np.asarray(want[3])[:, 20:24])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_chroma_without_the_lag_differs(seed):
+    """Row r taking MB bx when row r-1 has only done bx MBs reads the
+    bottom line of an MB that is not coded yet."""
+    w, h = 96, 80
+    uv = torch.from_numpy(_chroma_planes(w, h, seed))
+    want = TI.chroma_wavefront_plain(uv, 8, 10)
+    order = allowed_order(np.random.default_rng(seed + 3), h // 16, w // 16,
+                          lag=0)
+    got = _chroma_in_order(uv, (8, 10), order)
     assert not torch.equal(got[0], want[0])

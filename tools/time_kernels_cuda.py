@@ -1,0 +1,116 @@
+"""Times of the port's two redesigned-last CUDA kernels, `qpel_search` and
+`chroma_wavefront`, and of the four others, at 1920x1088 on one NVIDIA GPU,
+for comparing two trees on the same card in one command.
+
+    python3 tools/time_kernels_cuda.py [--root DIR]
+
+`--root` names the checkout whose `vp8oclenc_tpu_torch` is timed (default:
+the one this file is in), so an older tree unpacked beside this one can be
+run in turns with it.  Inputs are chip_smoke.py's, made from seeds: the
+padded synthetic frame at qi 10 for the intra kernels and the filter, the
+panned canvas's full-resolution planes with vectors of a real hierarchical
+search for the two searches.  Every kernel is held against its plain
+version first (bit-exact or the run fails), then timed over 20 launches
+after a warm-up with CUDA events, three times; the line printed is one
+JSON object with the least and the median of the three for each kernel,
+and the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=HERE)
+    root = os.path.abspath(ap.parse_args().root)
+    if not torch.cuda.is_available():
+        print("time_kernels_cuda: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from chip_smoke import (cuda_ms, max_abs_err, nvidia_smi_line,
+                            synth_frames, synth_moving)
+    sys.path.insert(0, root)          # the tree under test goes first
+    from vp8oclenc_tpu_torch.config import EncoderConfig
+    from vp8oclenc_tpu_torch.io.y4m import pad_frame
+    from vp8oclenc_tpu_torch.ops import inter as IN
+    from vp8oclenc_tpu_torch.ops import intra as I
+    from vp8oclenc_tpu_torch.ops import intra_replace as IR
+    from vp8oclenc_tpu_torch.ops import loopfilter as LF
+    from vp8oclenc_tpu_torch.pipeline.segments import prepare_segments
+    import vp8oclenc_tpu_torch
+    if not os.path.abspath(vp8oclenc_tpu_torch.__file__).startswith(root):
+        raise AssertionError("the package did not come from --root")
+
+    dev = torch.device("cuda", 0)
+    f = pad_frame(synth_frames(1, seed=7)[0])
+    y = torch.from_numpy(f.y).to(dev)
+    uv = torch.from_numpy(np.stack([f.u, f.v])).to(dev)
+    mbc = (y.shape[0] // 16) * (y.shape[1] // 16)
+    seg = prepare_segments(EncoderConfig(qi_min=10, qi_max=10), f.y, True,
+                           True)
+    yq = (int(seg.y_dc_q[0]), int(seg.y_ac_q[0]))
+    cq = (int(seg.uv_dc_q[0]), int(seg.uv_ac_q[0]))
+    lf = [torch.as_tensor(np.asarray(a, np.int32), device=dev) for a in
+          (seg.loop_filter_level, seg.mbedge_limit, seg.sub_bedge_limit,
+           seg.interior_limit, seg.hev_threshold)]
+    sid = torch.zeros(mbc, dtype=torch.int32, device=dev)
+    inner = torch.ones(mbc, dtype=torch.uint8, device=dev)
+    rec_y = I.luma_wavefront(y, *yq)[0]
+    rec_uv = I.chroma_wavefront(uv, *cq)[0]
+    planes = (rec_y, rec_uv[0].contiguous(), rec_uv[1].contiguous())
+
+    mv = [torch.from_numpy(pad_frame(g).y).to(dev)
+          for g in synth_moving(4, seed=3)]
+    cur = IN.build_pyramid(mv[3])
+    refs = [torch.stack(lv).contiguous()
+            for lv in zip(*(IN.build_pyramid(p) for p in mv[:3]))]
+    vec = None
+    for lvl, rate in ((4, 16), (3, 8), (2, 4), (1, 2)):
+        vec = IN.search_level(cur[lvl], refs[lvl], vec, rate, rate < 4)
+    v0 = IN.inherit_vectors(vec, 3, y.shape[0] // 8, y.shape[1] // 8, 1, dev)
+    fv = IN.fullpel_search(cur[0], refs[0], v0, True)
+    ftop, fleft = IR._frozen_luma_neighbors(rec_y, y.shape[1] // 16,
+                                            y.shape[0] // 16)
+    y_mb = IR._plane_mb(y, 16).contiguous()
+
+    tup = lambda r: r if isinstance(r, (tuple, list)) else (r,)
+    cases = {
+        "qpel_search": (lambda: IN.qpel_search(cur[0], refs[0], fv),
+                        lambda: IN.qpel_search_plain(cur[0], refs[0], fv)),
+        "chroma_wavefront": (lambda: I.chroma_wavefront(uv, *cq),
+                             lambda: I.chroma_wavefront_plain(uv, *cq)),
+        "fullpel_search_level0": (
+            lambda: IN.fullpel_search(cur[0], refs[0], v0, True),
+            lambda: IN.fullpel_search_plain(cur[0], refs[0], v0, True)),
+        "luma_wavefront": (lambda: I.luma_wavefront(y, *yq),
+                           lambda: I.luma_wavefront_plain(y, *yq)),
+        "loop_filter": (
+            lambda: LF.filter_planes(*planes, sid, inner, *lf),
+            lambda: LF.filter_planes_plain(*planes, sid, inner, *lf)),
+        "trial_luma": (lambda: IR.trial_luma(y_mb, ftop, fleft, *yq),
+                       lambda: IR.trial_luma_plain(y_mb, ftop, fleft, *yq)),
+    }
+    out = {"root": root, "card": nvidia_smi_line(), "ms": {}}
+    for name, (kfn, pfn) in cases.items():
+        err = max_abs_err(tup(kfn()), tup(pfn()))
+        if err != 0:
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version by {err}")
+        ms = [cuda_ms(kfn, reps=20) for _ in range(3)]
+        out["ms"][name] = {"min": min(ms), "median": statistics.median(ms)}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

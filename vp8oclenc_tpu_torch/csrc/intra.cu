@@ -12,7 +12,8 @@
 // What bounds it: the dependency chain, not bytes or operations.  A luma
 // block needs its left, above and above-right neighbours reconstructed, so
 // the frame is a chain of (w4-1) + 2*(h4-1) + 1 block steps (1022 at
-// 1920x1088); chroma has mbw + mbh - 1 MB steps (187).  The whole frame
+// 1920x1088); a chroma MB needs its left and above neighbours, a chain of
+// mbw + mbh - 1 MB steps (187).  The whole frame
 // moves ~6 MB and needs ~10^9 integer operations: microseconds of
 // bandwidth or ALU time.  What can be had is the chain at on-chip latency:
 // steps x (one block's dependent work from shared memory and registers).
@@ -52,12 +53,32 @@
 //     1.5 ms (the one-CTA kernel it replaces: 9.5 ms); PERF.md has the
 //     measurements.
 //
-// Chroma (`chroma_wavefront_kernel`): one CTA walks all stages with
-// __syncthreads() between them; one thread per (plane, MB row, 4x4
-// quadrant): the TM predictor of an MB reads only pixels outside the MB, so
-// the 4 quadrants are independent.  Recon lives in the output plane in
-// device memory (visible inside the CTA after the barrier).  The row
-// pipeline of the luma kernel would apply to it as it is.
+// Chroma (`chroma_rows_kernel`): the same row pipeline, one CTA per chroma
+// MB row, rows drawn from an atomic ticket, both planes in one CTA.
+//   * The wait rule.  TM_PRED of MB (bx, by) reads the bottom pixel line of
+//     MB (bx, by-1) with the last pixel of (bx-1, by-1) as its corner, and
+//     the right column of (bx-1, by).  Nothing above-right is read, so row
+//     by may code MB bx as soon as row by-1 has finished MB bx itself: a lag
+//     of one MB (luma needs two blocks).
+//   * Per plane three warps.  The coding warp walks the row left to right;
+//     the MB's four 4x4 quadrants, which depend only on pixels outside the
+//     MB, are coded by four lanes at once (`code_block`, one quadrant a
+//     lane).  Its pixels are in shared memory: the row's 8 source lines,
+//     staged with 16-byte loads before the walk and overwritten in place
+//     by the reconstruction, and the line above the row; the left column
+//     is the previous step's result, passed between lanes by one shuffle.
+//     The loading warp polls the row above's counter (ld.acquire) and
+//     brings its bottom line in with __ldcg; the storing warp writes the
+//     finished MBs' 8 lines out and publishes the count (st.release).  So
+//     the coding warp waits on shared memory only.  Levels (zigzag, two
+//     16-byte stores a quadrant) go straight to the output.
+//   * One launch of 1920x1088 (960x544 chroma) is 68 CTAs; 3840x2160 has
+//     135 rows on 132 SMs, which the ticket makes safe.
+//   * ptxas (sm_90a, CUDA 12.8): 56 registers, no spills, 32 bytes of static
+//     shared memory; dynamic 2 * (16*mbw + 2*mbw) words, 17 KB at 1920 wide.
+//     On an NVIDIA H100 80GB HBM3 (700 W) a 1920x1088 frame takes 0.30 ms
+//     (the one-CTA kernel it replaces: 1.49 ms), of which 0.14 ms is the
+//     chain of 187 MB steps at 0.75 us; PERF.md has the measurements.
 // Everything is int32; no float anywhere.
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -548,46 +569,143 @@ __global__ void __launch_bounds__(kRowThreads)
   }
 }
 
-// Thread = (plane, MB row, quadrant).  uv/rec: (2, mbh*8, mbw*8);
-// levels: (2, mbc, 4, 16).
-__global__ void __launch_bounds__(1024)
-    chroma_wavefront_kernel(const uint8_t* __restrict__ uv, uint8_t* rec,
-                            int16_t* levels, int mbw, int mbh, int dc,
-                            int ac) {
+// Per plane: warp p codes, warp 2 + p fetches the line above the MB row,
+// warp 4 + p writes the row out and publishes it to the row below.
+constexpr int kChromaThreads = 192;
+
+// Words of shared memory a plane takes: 8 lines of 2*mbw words, then the
+// line above, padded so that the next plane starts on 16 bytes.
+__host__ __device__ constexpr int chroma_plane_words(int mbw) {
+  return 16 * mbw + (2 * mbw + 3) / 4 * 4;
+}
+
+// One CTA per chroma MB row.  uv/rec: (2, mbh*8, mbw*8); levels: (2, mbc, 4,
+// 16) zigzag.  s_prog[p][0] counts the MBs of the line above that are in
+// shared memory, s_prog[p][1] the MBs of this row that are coded.  sync:
+// 2*mbh progress counters (plane-major) and the row ticket, all 0 at launch.
+__global__ void __launch_bounds__(kChromaThreads)
+    chroma_rows_kernel(const uint8_t* __restrict__ uv, uint8_t* rec,
+                       int16_t* levels, int* sync, int mbw, int mbh, int dc,
+                       int ac) {
   const Quant dc_q = make_quant(dc), ac_q = make_quant(ac);
-  const int W2 = mbw * 8, plane_px = W2 * mbh * 8, mbc = mbw * mbh;
-  const int D = mbw + mbh - 1;
-  const int n = 2 * mbh * 4;
-  for (int d = 0; d < D; ++d) {
-    for (int t = threadIdx.x; t < n; t += blockDim.x) {
-      const int q = t % 4, by = (t / 4) % mbh, p = t / (4 * mbh);
-      const int bx = d - by;
-      if (bx < 0 || bx >= mbw) continue;
-      const uint8_t* s = uv + p * plane_px;
-      uint8_t* r = rec + p * plane_px;
-      const int x0 = bx * 8 + (q % 2) * 4, y0 = by * 8 + (q / 2) * 4;
-      // TM_PRED of the whole MB restricted to this quadrant
-      int top[4], left[4], tl;
-      for (int j = 0; j < 4; ++j) {
-        top[j] = by == 0 ? 127 : r[(by * 8 - 1) * W2 + x0 + j];
-        left[j] = bx == 0 ? 129 : r[(y0 + j) * W2 + bx * 8 - 1];
-      }
-      tl = by == 0 ? 127
-                   : (bx == 0 ? 129 : r[(by * 8 - 1) * W2 + bx * 8 - 1]);
-      int pred[16], res[16], lev[16], out[16];
-      for (int i = 0; i < 4; ++i)
-        for (int j = 0; j < 4; ++j) {
-          pred[i * 4 + j] = clamp255(top[j] + left[i] - tl);
-          res[i * 4 + j] = s[(y0 + i) * W2 + x0 + j] - pred[i * 4 + j];
-        }
-      code_block(res, pred, dc_q, ac_q, lev, out);
-      for (int i = 0; i < 4; ++i)
-        for (int j = 0; j < 4; ++j)
-          r[(y0 + i) * W2 + x0 + j] = (uint8_t)out[i * 4 + j];
-      int16_t* lz = levels + ((p * mbc + by * mbw + bx) * 4 + q) * 16;
-      for (int i = 0; i < 16; ++i) lz[kInvZigzag[i]] = (int16_t)lev[i];
+  extern __shared__ uint4 smem[];
+  __shared__ int s_row;
+  __shared__ int s_prog[2][2];
+  if (threadIdx.x == 0) s_row = atomicAdd(sync + 2 * mbh, 1);
+  __syncthreads();
+  const int r = s_row;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int w2 = 2 * mbw;                         // words in a pixel line
+  const size_t plane_px = (size_t)mbw * 8 * mbh * 8;
+  const int pw = chroma_plane_words(mbw);
+  for (int p = 0; p < 2; ++p) {
+    const uint4* g = reinterpret_cast<const uint4*>(
+        uv + p * plane_px + (size_t)r * 8 * mbw * 8);
+    uint4* dst = smem + p * (pw / 4);
+    for (int i = threadIdx.x; i < 4 * mbw; i += kChromaThreads)
+      dst[i] = __ldg(g + i);
+    if (r == 0) {
+      uint32_t* above = reinterpret_cast<uint32_t*>(dst) + 8 * w2;
+      for (int i = threadIdx.x; i < w2; i += kChromaThreads)
+        above[i] = 0x7f7f7f7fu;
     }
-    __syncthreads();
+  }
+  if (threadIdx.x < 4)
+    s_prog[threadIdx.x >> 1][threadIdx.x & 1] =
+        (threadIdx.x & 1) == 0 && r == 0 ? mbw : 0;
+  __syncthreads();
+
+  const int p = warp < 2 ? warp : (warp < 4 ? warp - 2 : warp - 4);
+  uint32_t* px = reinterpret_cast<uint32_t*>(smem) + p * pw;   // 8 x w2
+  uint32_t* above = px + 8 * w2;
+  int* counter = sync + p * mbh;                  // this plane's rows
+
+  if (warp >= 2 && warp < 4) {
+    // The row above's bottom line, as far as that row has come.  Read from
+    // L2 (__ldcg) behind the acquire, never from L1.
+    if (r == 0) return;
+    const uint32_t* g_above = reinterpret_cast<const uint32_t*>(
+        rec + p * plane_px + (size_t)(8 * r - 1) * mbw * 8);
+    int have = 0;
+    while (have < mbw) {
+      const int seen = wait_above<true>(counter + r - 1, have, lane);
+      for (int i = 2 * have + lane; i < 2 * seen; i += 32)
+        above[i] = __ldcg(g_above + i);
+      post<false>(&s_prog[p][0], seen, lane);
+      have = seen;
+    }
+    return;
+  }
+  if (warp >= 4) {
+    // The finished MBs' 8 lines to the output plane, 8 bytes a lane, then
+    // their count to the row below (st.release at device scope; the other
+    // lanes' stores are ordered before it by __syncwarp).
+    uint2* g_row = reinterpret_cast<uint2*>(
+        rec + p * plane_px + (size_t)r * 8 * mbw * 8);
+    const uint2* rows = reinterpret_cast<const uint2*>(px);
+    int have = 0;
+    while (have < mbw) {
+      const int seen = wait_above<false>(&s_prog[p][1], have, lane);
+      for (int i = lane; i < 8 * (seen - have); i += 32) {
+        const int at = (i & 7) * mbw + have + (i >> 3);
+        g_row[at] = rows[at];
+      }
+      if (r + 1 < mbh) post<true>(counter + r, seen, lane);
+      have = seen;
+    }
+    return;
+  }
+
+  // Lane q < 4 codes quadrant q of each MB; the lanes above repeat them
+  // and store nothing.
+  const int q = lane & 3, qy = q >> 1, qx = q & 1;
+  const size_t mb0 = (size_t)p * mbw * mbh + (size_t)r * mbw;
+  int seen = r == 0 ? mbw : 0;                    // s_prog[p][0], as last read
+  uint32_t wl = 0x81818181u;                      // left of the frame: 129
+  for (int bx = 0; bx < mbw; ++bx) {
+    if (seen <= bx) seen = wait_above<false>(&s_prog[p][0], bx, lane);
+    int top[4], left[4];
+    unpack4(above[2 * bx + qx], top);
+    unpack4(wl, left);
+    const int tl =
+        r == 0 ? 127 : (bx == 0 ? 129 : (int)(above[2 * bx - 1] >> 24));
+    uint32_t* mine = px + 4 * qy * w2 + 2 * bx + qx;
+    int pred[16], res[16], lev[16], out[16];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int s[4];
+      unpack4(mine[i * w2], s);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        pred[i * 4 + j] = clamp255(top[j] + left[i] - tl);
+        res[i * 4 + j] = s[j] - pred[i * 4 + j];
+      }
+    }
+    code_block(res, pred, dc_q, ac_q, lev, out);
+    // the next MB's left column: the right column of the quadrant beside
+    // or under this lane's, rows as this lane's
+    wl = __shfl_sync(0xffffffffu, pack4(out[3], out[7], out[11], out[15]),
+                     lane | 1);
+    if (lane < 4) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        mine[i * w2] = pack4(out[4 * i], out[4 * i + 1], out[4 * i + 2],
+                             out[4 * i + 3]);
+    }
+    post<false>(&s_prog[p][1], bx + 1, lane);
+    // behind the release: the levels, zigzag
+    if (lane < 4) {
+      constexpr int zz[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11,
+                              14, 15};            // raster index of zigzag pos
+      uint32_t h[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        h[i] = (uint32_t)(uint16_t)(int16_t)lev[zz[2 * i]] |
+               (uint32_t)(uint16_t)(int16_t)lev[zz[2 * i + 1]] << 16;
+      uint4* lz = reinterpret_cast<uint4*>(levels + ((mb0 + bx) * 4 + q) * 16);
+      lz[0] = make_uint4(h[0], h[1], h[2], h[3]);
+      lz[1] = make_uint4(h[4], h[5], h[6], h[7]);
+    }
   }
 }
 
@@ -664,11 +782,6 @@ __global__ void __launch_bounds__(kTrialThreads)
   }
 }
 
-int threads_for(int n, int most) {
-  int t = (n + 31) / 32 * 32;
-  return t > most ? most : t;
-}
-
 }  // namespace
 
 extern "C" int vp8_luma_wavefront(const void* y, void* recon, void* levels,
@@ -685,12 +798,15 @@ extern "C" int vp8_luma_wavefront(const void* y, void* recon, void* levels,
 }
 
 extern "C" int vp8_chroma_wavefront(const void* uv, void* recon, void* levels,
-                                    int mbw, int mbh, int dc_q, int ac_q,
-                                    void* stream) {
-  chroma_wavefront_kernel<<<1, threads_for(2 * mbh * 4, 1024), 0,
-                            (cudaStream_t)stream>>>(
-      (const uint8_t*)uv, (uint8_t*)recon, (int16_t*)levels, mbw, mbh, dc_q,
-      ac_q);
+                                    void* sync, int mbw, int mbh, int dc_q,
+                                    int ac_q, void* stream) {
+  const int smem = 2 * chroma_plane_words(mbw) * 4;
+  cudaError_t e = cudaFuncSetAttribute(
+      chroma_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  chroma_rows_kernel<<<mbh, kChromaThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)uv, (uint8_t*)recon, (int16_t*)levels, (int*)sync, mbw,
+      mbh, dc_q, ac_q);
   return (int)cudaGetLastError();
 }
 

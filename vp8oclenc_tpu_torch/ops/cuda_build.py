@@ -20,14 +20,14 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("intra", "loopfilter", "search")
+SOURCES = ("intra", "loopfilter", "search", "probe")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "intra": {
         "vp8_luma_wavefront": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "vp8_chroma_wavefront": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "vp8_chroma_wavefront": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "vp8_trial_luma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "loopfilter": {
@@ -37,6 +37,10 @@ _SIGNATURES = {
     "search": {
         "vp8_fullpel_search": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "vp8_qpel_search": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    },
+    # not a kernel of the encoder: the integer-rate probe of chip_smoke.py
+    "probe": {
+        "vp8_int_rate": [_P, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -9,7 +9,9 @@ tests/test_torch_wavefront_order.py holds against this one): a block
 reads only its left, above and above-right neighbours (the above-right of
 an MB's last block column comes from the row above the whole MB), all of
 which lie on earlier diagonals.  Chroma is whole-MB TM_PRED for U and V
-together, on the wavefront d = mbx + mby.
+together, on the wavefront d = mbx + mby (`chroma_step`; the kernel's
+rule is "MB (bx, by) after (bx, by-1)", a lag of one, held against this
+one by the same test).
 
 Each wavefront has two versions with one contract:
   * `*_plain`: plain PyTorch, one vectorized step per diagonal; it runs on
@@ -142,43 +144,70 @@ def luma_wavefront_plain(y: torch.Tensor, dc_q: int, ac_q: int):
     return luma_result(st)
 
 
+def chroma_state(uv: torch.Tensor):
+    """The working state of a frame's chroma encode: source MBs of both
+    planes, the int32 reconstruction (zeros where nothing is coded yet)
+    and the per-MB levels, filled by `chroma_step`."""
+    _, H2, W2 = uv.shape
+    mbh, mbw = H2 // 8, W2 // 8
+    dev = uv.device
+    return {"src8": uv.to(_I32).reshape(2, mbh, 8, mbw, 8),
+            "rec": torch.zeros((2, H2, W2), dtype=_I32, device=dev),
+            "levels": torch.zeros((2, mbh, mbw, 4, 16), dtype=_I32,
+                                  device=dev)}
+
+
+def chroma_step(st, by, bx, dc_q: int, ac_q: int) -> None:
+    """Code the chroma MBs (by, bx) (index tensors of one length) of both
+    planes of the state `st`.  An MB's left and above neighbours must be
+    coded (TM_PRED reads the right column of the one, the bottom line of
+    the other and, as its corner, the last pixel of the above-left MB's
+    bottom line; nothing above-right), and the MBs of one call must not be
+    neighbours of each other."""
+    rec = st["rec"]
+    dev = rec.device
+    _, mbh, _, mbw, _ = st["src8"].shape
+    ar8 = torch.arange(8, device=dev)
+    row_above = torch.clamp(by * 8 - 1, min=0)
+    col_left = torch.clamp(bx * 8 - 1, min=0)
+    top = rec[:, row_above[:, None], bx[:, None] * 8 + ar8[None, :]]
+    top = torch.where((by == 0)[None, :, None], 127, top)
+    left = rec[:, by[:, None] * 8 + ar8[None, :], col_left[:, None]]
+    left = torch.where((bx == 0)[None, :, None], 129, left)
+    tl = rec[:, row_above, col_left]
+    tl = torch.where((by == 0)[None, :], 127,
+                     torch.where((bx == 0)[None, :], 129, tl))
+    pred = tm_predict_8x8(top, left, tl)                     # (2, K, 8, 8)
+    src = st["src8"][:, by, :, bx, :].transpose(0, 1)        # (2, K, 8, 8)
+    quads = lambda a: a.reshape(2, -1, 2, 4, 2, 4).permute(0, 1, 2, 4, 3, 5)
+    lev = T.quant4x4(T.fdct4x4(quads(src - pred)), dc_q, ac_q)
+    rq = torch.clamp(T.idct4x4(T.dequant4x4(lev, dc_q, ac_q))
+                     + quads(pred), 0, 255)
+    rec.view(2, mbh, 8, mbw, 8)[:, by, :, bx, :] = \
+        rq.permute(0, 1, 2, 4, 3, 5).reshape(2, -1, 8, 8).transpose(0, 1)
+    st["levels"][:, by, bx] = T.zigzag(lev).reshape(2, -1, 4, 16)
+
+
+def chroma_result(st):
+    """(recon u8, levels i16) of a finished state, in the layout of
+    `chroma_wavefront_plain`."""
+    _, mbh, _, mbw, _ = st["src8"].shape
+    return (st["rec"].to(torch.uint8),
+            st["levels"].reshape(2, mbh * mbw, 4, 16).to(torch.int16))
+
+
 def chroma_wavefront_plain(uv: torch.Tensor, dc_q: int, ac_q: int):
     """Sequential TM_PRED encode of U and V together: uv (2, mbh*8, mbw*8)
     u8 -> (recon (2, mbh*8, mbw*8) u8, levels (2, mbc, 4, 16) i16 zigzag,
     the 4 blocks of each MB in raster order)."""
     _, H2, W2 = uv.shape
     mbh, mbw = H2 // 8, W2 // 8
-    dev = uv.device
-    src8 = uv.to(_I32).reshape(2, mbh, 8, mbw, 8)
-    rec = torch.zeros((2, H2, W2), dtype=_I32, device=dev)
-    rec8 = rec.view(2, mbh, 8, mbw, 8)
-    levels = torch.zeros((2, mbh, mbw, 4, 16), dtype=_I32, device=dev)
-    bands = torch.arange(mbh, device=dev)
+    st = chroma_state(uv)
+    bands = torch.arange(mbh, device=uv.device)
     for d in range(mbw + mbh - 1):
         by = bands[max(0, d - mbw + 1):min(mbh - 1, d) + 1]
-        bx = d - by
-        row_above = torch.clamp(by * 8 - 1, min=0)
-        col_left = torch.clamp(bx * 8 - 1, min=0)
-        top = rec[:, row_above[:, None],
-                  bx[:, None] * 8 + torch.arange(8, device=dev)[None, :]]
-        top = torch.where((by == 0)[None, :, None], 127, top)
-        left = rec[:, by[:, None] * 8 + torch.arange(8, device=dev)[None, :],
-                   col_left[:, None]]
-        left = torch.where((bx == 0)[None, :, None], 129, left)
-        tl = rec[:, row_above, col_left]
-        tl = torch.where((by == 0)[None, :], 127,
-                         torch.where((bx == 0)[None, :], 129, tl))
-        pred = tm_predict_8x8(top, left, tl)                 # (2, K, 8, 8)
-        src = src8[:, by, :, bx, :].transpose(0, 1)          # (2, K, 8, 8)
-        quads = lambda a: a.reshape(2, -1, 2, 4, 2, 4).permute(0, 1, 2, 4, 3, 5)
-        lev = T.quant4x4(T.fdct4x4(quads(src - pred)), dc_q, ac_q)
-        rq = torch.clamp(T.idct4x4(T.dequant4x4(lev, dc_q, ac_q))
-                         + quads(pred), 0, 255)
-        rec8[:, by, :, bx, :] = rq.permute(0, 1, 2, 4, 3, 5) \
-            .reshape(2, -1, 8, 8).transpose(0, 1)
-        levels[:, by, bx] = T.zigzag(lev).reshape(2, -1, 4, 16)
-    return (rec.to(torch.uint8),
-            levels.reshape(2, mbh * mbw, 4, 16).to(torch.int16))
+        chroma_step(st, by, d - by, dc_q, ac_q)
+    return chroma_result(st)
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -242,10 +271,15 @@ def chroma_wavefront(uv: torch.Tensor, dc_q: int, ac_q: int):
         raise ValueError(f"chroma_wavefront: bad shape {tuple(uv.shape)}")
     from vp8oclenc_tpu_torch.ops import cuda_build
     mbc = (H2 // 8) * (W2 // 8)
+    if uv.data_ptr() % 16:          # the kernel loads 16 bytes at a time
+        uv = uv.clone()
     recon = torch.empty_like(uv)
     levels = torch.empty((2, mbc, 4, 16), dtype=torch.int16, device=uv.device)
+    # per-plane, per-MB-row progress counters and the row ticket, zeroed
+    # per call as in `luma_wavefront`
+    sync = torch.zeros(2 * (H2 // 8) + 1, dtype=torch.int32, device=uv.device)
     rc = cuda_build.library("intra").vp8_chroma_wavefront(
-        _ptr(uv), _ptr(recon), _ptr(levels), W2 // 8, H2 // 8,
+        _ptr(uv), _ptr(recon), _ptr(levels), _ptr(sync), W2 // 8, H2 // 8,
         int(dc_q), int(ac_q), _stream(uv))
     cuda_build.check(rc, "vp8_chroma_wavefront")
     chroma_wavefront.launches += 1
