@@ -25,12 +25,14 @@ Phases (any failure exits non-zero before the result line):
      quarter-pel search kernels against theirs on the real pyramid levels
      4..0 of two contents (a panned canvas searched level by level, and
      noise searched from random vectors that reach past the frame edges),
-     the quarter-pel kernel also at 16x16, 8x40, 56x8 and 64x2176; then the
-     frozen-neighbour luma trial against its plain version at 8160 MBs, at
-     the AQ, HQ and UQ quantizers of -qmin 50 -qmax 112, on neighbours cut
-     from a keyframe-coded plane and on random sources and neighbours with
-     all-0 and all-255 MBs; outputs must be bit-identical; both are timed
-     with CUDA events;
+     both also at 16x16, 8x40, 56x8, 10x8, 11x9, 22x18 and 64x2176 (full
+     pel with the penalty off and on); then the frozen-neighbour luma trial
+     against its plain version at 8160 MBs, at the AQ, HQ and UQ quantizers
+     of -qmin 50 -qmax 112, on neighbours cut from a keyframe-coded plane
+     and on random sources and neighbours with all-0 and all-255 MBs, and
+     at 1, 7 and 8161 MBs; outputs must be bit-identical; kernels are timed
+     by the card's clock (`cuda_ms`), plain versions with CUDA events
+     around one call (`span_ms`);
   4. all-keyframe path: 10 synthetic 1920x1080 frames through
      Encoder.encode_frames with gop_size=1 on cuda, with each kernel's
      launch counter set to 0 before and read after; then the first 2
@@ -84,6 +86,9 @@ MAC8_PER_LANE = 4             # 8-bit multiply-adds of one dp4a
 # 32-bit integer instructions a second, all SMs and both pipes: set by
 # `phase_int_rate` from this card's SM count and clock
 INT_OPS_PER_S = None
+# torch.cuda._sleep counts SM clock cycles; sized at the card's highest
+# clock, a sleep is at least as long as asked for
+SLEEP_HZ = 1.98e9
 W, H = 1920, 1080
 QI_PAIRS = (10, 40)           # keyframe quantizer indices held to the plain
 REPEATS = 5                   # launches of a row kernel, each compared
@@ -117,6 +122,18 @@ OPS_FILTER_LINE = 45
 # 64-pixel copy.
 OPS_COST8 = 64 + 4 * 128 + 4 * 34 + 12
 OPS_INVALID = 12
+# The full-pel kernel's formulation needs fewer: the cost is linear up
+# to the abs, so the column stage of C4 (R - C) C4^T is taken once per
+# window position (9 row starts x 12 columns of a 12x12 window, ~12
+# operations each: butterflies and the 5/2 products) and once for the
+# current block (16 columns, then its 16 rows), and each in-frame candidate
+# adds per quadrant four row stages with the current block's subtracted
+# (12 + 4), 16 abs, 16 sums and a ~7-operation weighted tail, then ~15 for
+# the quadrant sums, penalty, bounds and key.  Both counts are logged; the
+# bound uses this one.
+OPS_C4 = 12
+OPS_CAND_STAGED = 4 * (4 * (OPS_C4 + 4) + 16 + 16 + 7) + 15
+OPS_WINDOW_COLUMNS = 9 * 12 * OPS_C4
 OPS_SIXTAP_INT, OPS_SIXTAP_MAC8 = 4, 6
 QPEL_HPASS_FILTERED, QPEL_HPASS_COPIED = 4 * 14 * 8, 14 * 8
 
@@ -219,18 +236,49 @@ def synth_redo(n, at, seed=0, w=W, h=H):
             for t in range(n)]
 
 
-def cuda_ms(fn, reps: int, warm: int = 1) -> float:
-    for _ in range(warm):
-        fn()
+def cuda_ms(fn, reps: int) -> float:
+    """Device time of one call of `fn` (ms), by the card's clock: after a
+    warm-up call, a `torch.cuda._sleep` goes into the stream first and the
+    `reps` calls queue behind it while the card sleeps, so the CUDA events
+    around them time the card running them back to back, not the host
+    issuing them (a wrapper's checks, allocation and ctypes launch take
+    longer than a short kernel).  The sleep is sized from the warm-up
+    call's host time and made longer until the host has issued every call
+    before it ends."""
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    sleep_s = max(4 * reps * (time.perf_counter() - t0), 2e-3)
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    for _ in range(4):
+        torch.cuda._sleep(int(sleep_s * SLEEP_HZ))
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        issued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if issued < sleep_s:
+            return a.elapsed_time(b) / reps
+        sleep_s *= 4
+    raise AssertionError("the host did not issue the timed calls within "
+                         "the card's sleep")
+
+
+def span_ms(fn) -> float:
+    """CUDA events around one call of `fn` issued with the card idle: the
+    host's issue pace where it is slower than the card (a plain version's
+    hundreds of launches, an inter frame's chain), else the card's time."""
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
     a.record()
-    for _ in range(reps):
-        fn()
+    fn()
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+    return a.elapsed_time(b)
 
 
 def max_abs_err(xs, ys) -> int:
@@ -362,7 +410,7 @@ def phase_kernels(dev):
                     raise AssertionError(f"{name} at qi={qi}: launch "
                                          f"{i + 2} differs")
             ms = cuda_ms(kfn, reps=10)
-            pms = cuda_ms(pfn, reps=1, warm=0)
+            pms = span_ms(pfn)
             bms, by = bound(nbytes, ops)
             log(f"  {name} qi={qi}: bit-exact, kernel {ms:.3f} ms, plain "
                 f"{pms:.1f} ms, bound {bms:.5f} ms ({by})")
@@ -478,27 +526,43 @@ def _qpel_valid(fv, Hl, Wl):
     return int((okx * oky.sum(-1)).sum()), int((okx * oky[..., 2]).sum())
 
 
-def _qpel_small_shapes(dev):
-    """The quarter-pel kernel where its staging has its edges: one block, a
-    block column, a block row (a width that is no multiple of 4 among the
-    pyramid levels), and a tall plane; vectors point past every edge."""
+def _search_small_shapes(dev):
+    """Both search kernels where their staging and lane mappings have their
+    edges: one block, a block column, block rows, widths that are no
+    multiple of 4 (pyramid levels of a 176-wide frame: 11x9, 22x18; 10x8),
+    and a tall plane; vectors point past every edge, full pel with and
+    without the penalty."""
     from vp8oclenc_tpu_torch.ops import inter as IN
-    for w, h in ((16, 16), (8, 40), (56, 8), (10, 8), (64, 2176)):
+    shapes = ((16, 16), (8, 40), (56, 8), (10, 8), (11, 9), (22, 18),
+              (64, 2176))
+    for w, h in shapes:
         rng = np.random.default_rng(w * h)
         cur = torch.from_numpy(synth_plane(rng, h, w, 0)).to(dev)
         refs = torch.stack([torch.from_numpy(synth_plane(rng, h, w, t))
                             for t in (0, 1, 2)]).to(dev)
         refs[0] = cur.roll((1, -1), (0, 1))
         n = (h // 8) * (w // 8)
-        v = rng.integers(-6, 7, (3, n, 2))
-        v[:, 0], v[:, -1] = -6, 6
-        fv = torch.as_tensor(v, dtype=torch.int32, device=dev)
-        err = max_abs_err(IN.qpel_search(cur, refs, fv),
-                          IN.qpel_search_plain(cur, refs, fv))
-        if err != 0:
-            raise AssertionError(f"qpel_search at {w}x{h}: kernel differs "
-                                 f"from its plain version by {err}")
-    log("  qpel_search at 16x16, 8x40, 56x8, 10x8 and 64x2176: bit-exact")
+        for reach in (6, 12):
+            v = rng.integers(-reach, reach + 1, (3, n, 2))
+            v[:, 0], v[:, -1] = -reach, reach
+            vec = torch.as_tensor(v, dtype=torch.int32, device=dev)
+            cases = [("fullpel_search", pen,
+                      [IN.fullpel_search(cur, refs, vec, pen)],
+                      [IN.fullpel_search_plain(cur, refs, vec, pen)])
+                     for pen in (False, True)]
+            if reach == 6:
+                cases.append(("qpel_search", None,
+                              IN.qpel_search(cur, refs, vec),
+                              IN.qpel_search_plain(cur, refs, vec)))
+            for name, pen, k, p in cases:
+                err = max_abs_err(k, p)
+                if err != 0:
+                    raise AssertionError(f"{name} at {w}x{h} (reach {reach}"
+                                         f", penalty {pen}): kernel differs "
+                                         f"from its plain version by {err}")
+    log("  fullpel_search (vectors to +-6 and +-12, penalty off and on) and "
+        "qpel_search at " + ", ".join(f"{w}x{h}" for w, h in shapes)
+        + ": bit-exact")
 
 
 def phase_search(dev):
@@ -513,7 +577,7 @@ def phase_search(dev):
     from vp8oclenc_tpu_torch.io.y4m import pad_frame
     from vp8oclenc_tpu_torch.ops import inter as IN
 
-    _qpel_small_shapes(dev)
+    _search_small_shapes(dev)
     contents = {"moving": synth_moving(4, seed=3),
                 "edges": synth_frames(4, seed=5)}
     rows = {}
@@ -523,8 +587,8 @@ def phase_search(dev):
         refs = [torch.stack(lv).contiguous() for lv in
                 zip(*(IN.build_pyramid(p) for p in planes[:3]))]
         rng = np.random.default_rng(ci)
-        fp = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0,
-              "bytes": 0, "ops": 0}
+        fp = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0,
+              "ops": 0, "ops_old": 0}
         vec = None
         for lvl, rate in ((4, 16), (3, 8), (2, 4), (1, 2), (0, 1)):
             c, r = cur[lvl], refs[lvl]
@@ -545,18 +609,23 @@ def phase_search(dev):
                                      f": kernel differs from its plain "
                                      f"version by {err}")
             ms = cuda_ms(lambda: IN.fullpel_search(c, r, v0, pen), reps=10)
-            pms = cuda_ms(lambda: IN.fullpel_search_plain(c, r, v0, pen),
-                          reps=1, warm=0)
+            pms = span_ms(lambda: IN.fullpel_search_plain(c, r, v0, pen))
             valid, invalid = _fullpel_counts(v0, Hl, Wl)
             nbytes = c.numel() + r.numel() + 2 * v0.numel() * 4
-            ops = valid * OPS_COST8 + invalid * OPS_INVALID
+            ops_old = valid * OPS_COST8 + invalid * OPS_INVALID
+            ops = valid * OPS_CAND_STAGED + invalid * OPS_INVALID \
+                + v0.shape[0] * v0.shape[1] * 2 * OPS_WINDOW_COLUMNS \
+                + v0.shape[1] * 32 * OPS_C4
             bms, by = bound(nbytes, ops)
             log(f"  fullpel_search {label} level {lvl} ({Wl}x{Hl}, "
                 f"{v0.shape[1]} blocks x 3 refs, {valid} of "
                 f"{valid + invalid} candidates in frame): bit-exact, kernel "
-                f"{ms:.4f} ms, plain {pms:.1f} ms, bound {bms:.5f} ms ({by})")
+                f"{ms:.4f} ms, plain {pms:.1f} ms, bound {bms:.5f} ms ({by}; "
+                f"{ops} operations, {ops_old} by the per-candidate count, "
+                f"bound {bound(nbytes, ops_old)[0]:.5f} ms)")
             for key, val in (("ms", ms), ("plain_ms", pms), ("bound_ms", bms),
-                             ("bytes", nbytes), ("ops", ops)):
+                             ("bytes", nbytes), ("ops", ops),
+                             ("ops_old", ops_old)):
                 fp[key] += val
             vec = (k * rate).reshape(3, nby, nbx, 2)
         c, r = cur[0], refs[0]
@@ -573,7 +642,7 @@ def phase_search(dev):
             raise AssertionError(f"qpel_search ({label}): kernel differs from "
                                  f"its plain version by {err}")
         ms = cuda_ms(lambda: IN.qpel_search(c, r, fv), reps=10)
-        pms = cuda_ms(lambda: IN.qpel_search_plain(c, r, fv), reps=1, warm=0)
+        pms = span_ms(lambda: IN.qpel_search_plain(c, r, fv))
         jobs = fv.shape[0] * fv.shape[1]
         valid, copied = _qpel_valid(fv, Hl, Wl)
         filtered = jobs * QPEL_HPASS_FILTERED + (valid - copied) * 64
@@ -590,7 +659,9 @@ def phase_search(dev):
             f"{bms:.5f} ms ({by})")
         fbms, fby = bound(fp["bytes"], fp["ops"])
         log(f"  fullpel_search {label}, 5 levels: kernel {fp['ms']:.4f} ms, "
-            f"plain {fp['plain_ms']:.1f} ms, bound {fbms:.5f} ms ({fby})")
+            f"plain {fp['plain_ms']:.1f} ms, bound {fbms:.5f} ms ({fby}; by "
+            f"the per-candidate count "
+            f"{bound(fp['bytes'], fp['ops_old'])[0]:.5f} ms)")
         for name, vals in (("fullpel_search", (fp["ms"], fp["plain_ms"],
                                                fbms, fby)),
                            ("qpel_search", (ms, pms, bms, by))):
@@ -609,7 +680,7 @@ def phase_trial(dev):
     (AQ, HQ, UQ of -qmin 50 -qmax 112).  Input "recon": sources from one
     synthetic frame, neighbours cut from another's keyframe-coded
     reconstruction.  Input "random": random sources and neighbours, with
-    all-0 and all-255 MBs."""
+    all-0 and all-255 MBs.  Then 1, 7 and 8161 MBs."""
     from vp8oclenc_tpu_torch.config import EncoderConfig
     from vp8oclenc_tpu_torch.io.y4m import pad_frame
     from vp8oclenc_tpu_torch.ops import intra as I
@@ -648,14 +719,28 @@ def phase_trial(dev):
                                      f"{err}")
             ms = cuda_ms(lambda: IR.trial_luma(y_mb, ftop, fleft, *q),
                          reps=10)
-            pms = cuda_ms(lambda: IR.trial_luma_plain(y_mb, ftop, fleft, *q),
-                          reps=1, warm=0)
+            pms = span_ms(lambda: IR.trial_luma_plain(y_mb, ftop, fleft, *q))
             log(f"  trial_luma {label} segment {sid} q={q} ({mbc} MBs, "
                 f"{len(torch.unique(k[1]))} modes in use): bit-exact, "
                 f"kernel {ms:.4f} ms, plain {pms:.1f} ms, bound {bms:.5f} "
                 f"ms ({by})")
             row["ms"].append(ms)
             row["plain_ms"].append(pms)
+    # where the CTAs of 8 MBs have their edges: one MB, a CTA that is not
+    # full, one MB past the 1080p frame's 8160
+    for n in (1, 7, mbc + 1):
+        y_mb, ftop, fleft = rnd(n, 16, 16), rnd(n, 21), rnd(n, 16)
+        y_mb[:n // 3], y_mb[n // 3:2 * n // 3] = 0, 255
+        for sid in (2, 1, 0):
+            q = (int(seg.y_dc_q[sid]), int(seg.y_ac_q[sid]))
+            err = max_abs_err(IR.trial_luma(y_mb, ftop, fleft, *q),
+                              IR.trial_luma_plain(y_mb, ftop, fleft, *q))
+            if err != 0:
+                raise AssertionError(f"trial_luma ({n} MBs, q={q}): kernel "
+                                     f"differs from its plain version by "
+                                     f"{err}")
+    log(f"  trial_luma at 1, 7 and {mbc + 1} MBs (a third all 0, a third "
+        f"all 255), three quantizer pairs: bit-exact")
     return {"trial_luma": row}
 
 
@@ -706,8 +791,8 @@ def phase_end_to_end(dev):
     from vp8oclenc_tpu_torch.pipeline.segments import prepare_segments
     seg = prepare_segments(probe.cfg, p.y, True, True)
     yuv = probe.backend.upload_frame(p.y, p.u, p.v)
-    key_ms = [cuda_ms(lambda: probe.backend.encode_intra_frame(
-        p.y, p.u, p.v, seg, yuv_dev=yuv), reps=1, warm=0) for _ in range(5)]
+    key_ms = [span_ms(lambda: probe.backend.encode_intra_frame(
+        p.y, p.u, p.v, seg, yuv_dev=yuv)) for _ in range(5)]
     probe.close()
     log(f"  keyframe device chain (intra + filter + D2H), median of 5: "
         f"{statistics.median(key_ms):.3f} ms")
@@ -794,9 +879,9 @@ def phase_default_gop(dev):
     p = _own_padded(frames[1])
     seg = prepare_segments(probe.cfg, p.y, False, False)
     yuv = probe.backend.upload_frame(p.y, p.u, p.v)
-    inter_ms = [cuda_ms(lambda: probe.backend.encode_inter_frame(
-        probe, p.y, p.u, p.v, seg, False, False, yuv_dev=yuv), reps=1,
-        warm=0) for _ in range(5)]
+    inter_ms = [span_ms(lambda: probe.backend.encode_inter_frame(
+        probe, p.y, p.u, p.v, seg, False, False, yuv_dev=yuv))
+        for _ in range(5)]
     probe.close()
     log(f"  inter device chain (search kernels, body, filter, next LAST "
         f"pyramid, D2H), median of 5: {statistics.median(inter_ms):.3f} ms")
@@ -943,9 +1028,9 @@ def phase_ssim_target(dev):
     p = _own_padded(frames[1])
     seg = prepare_segments(probe.cfg, p.y, False, False)
     yuv = probe.backend.upload_frame(p.y, p.u, p.v)
-    inter_ms = [cuda_ms(lambda: probe.backend.encode_inter_frame(
-        probe, p.y, p.u, p.v, seg, False, False, yuv_dev=yuv), reps=1,
-        warm=0) for _ in range(5)]
+    inter_ms = [span_ms(lambda: probe.backend.encode_inter_frame(
+        probe, p.y, p.u, p.v, seg, False, False, yuv_dev=yuv))
+        for _ in range(5)]
     probe.close()
     log(f"  SSIM-on inter device chain (search, 4 segment passes, 3 trials, "
         f"merge, filter, next LAST pyramid, D2H), median of 5: "

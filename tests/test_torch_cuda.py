@@ -186,13 +186,15 @@ def _moving(w, h, n, seed):
 
 
 @pytest.mark.parametrize("size", [(96, 80), (80, 64), (48, 96), (16, 16),
-                                  (8, 40), (56, 8), (64, 2176)])
+                                  (8, 40), (56, 8), (22, 18), (176, 144),
+                                  (64, 2176)])
 def test_search_kernels_match_plain(dev, size):
     """Both search kernels on every pyramid level that holds a block, with
     vectors large enough that windows and candidates cross the frame edge,
     with and without the penalty.  The small sizes are one block, one block
     column and one block row (levels whose width is no multiple of 4 among
-    them: the quarter-pel kernel then loads bytes, not words)."""
+    them, 11x9 and 22x18 of a 176-wide frame: the kernels then load bytes,
+    not words)."""
     w, h = size
     rng = np.random.default_rng(w * h)
     f = _moving(w, h, 4, seed=w)
@@ -277,6 +279,27 @@ def test_trial_luma_matches_plain(dev, size, q):
     assert all(a.dtype == b.dtype and torch.equal(a, b)
                for a, b in zip(k, p))
     assert len(torch.unique(k[1])) > 3
+
+
+@pytest.mark.parametrize("mbc", [1, 7, 8161])
+def test_trial_luma_edges_match_plain(dev, mbc):
+    """One MB, a CTA of 8 MBs that is not full, one past a 1080p frame's
+    8160; a third of the MBs all 0 and a third all 255, at the AQ, HQ and
+    UQ quantizers of -qmin 50 -qmax 112 -SSIM-target 98."""
+    from vp8oclenc_tpu_torch.pipeline.segments import prepare_segments
+    rng = np.random.default_rng(mbc)
+    rnd = lambda *s: torch.from_numpy(
+        rng.integers(0, 256, s, dtype=np.uint8)).to(dev)
+    y_mb, ftop, fleft = rnd(mbc, 16, 16), rnd(mbc, 21), rnd(mbc, 16)
+    y_mb[:mbc // 3], y_mb[mbc // 3:2 * mbc // 3] = 0, 255
+    seg = prepare_segments(EncoderConfig(**SSIM_CFG),
+                           _planes(96, 80, 1)[0], False, False)
+    for sid in (2, 1, 0):
+        q = (int(seg.y_dc_q[sid]), int(seg.y_ac_q[sid]))
+        k = IR.trial_luma(y_mb, ftop, fleft, *q)
+        p = IR.trial_luma_plain(y_mb, ftop, fleft, *q)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(k, p)), q
 
 
 def _replacement(w, h, n, seed):

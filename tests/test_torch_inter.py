@@ -250,6 +250,163 @@ def test_qpel_kernel_model_matches(size):
     _eq(mp.reshape(3, -1, 8, 8), jp, "best_pred vs jax")
 
 
+def _c4_stage(x0, x1, x2, x3):
+    """The rows of C4 without their factors 8, 2, 8, 2 (csrc/search.cu
+    c4_stage), stacked on a new last axis as (a, e, b, f)."""
+    s03, d03, s12, d12 = x0 + x3, x0 - x3, x1 + x2, x1 - x2
+    return np.stack([s03 + s12, 5 * d03 + 2 * d12, s03 - s12,
+                     2 * d03 - 5 * d12], -1)
+
+
+def _fits(a, bits, signed=True):
+    lo, hi = (-(1 << (bits - 1)), 1 << (bits - 1)) if signed else \
+        (0, 1 << bits)
+    assert a.min() >= lo and a.max() < hi, (a.min(), a.max(), bits)
+    return a
+
+
+def _fullpel_kernel_model(cur, refs, v0, penalty, per_warp):
+    """The arithmetic of csrc/search.cu's fullpel_kernel in numpy, for every
+    warp (a block and `per_warp` references: 3, or 1 on a level of fewer
+    than 1024 blocks) at once: clamped 12x12 windows (2k
+    around reference k's v0, 2k + 1 around zero); the column stage of
+    every window position (rows r..r+3 for r = 0..8, columns 0..11) and of
+    the current block; the current quadrants' row stage g; per candidate
+    and quadrant the row stage of four window columns less g, |.| summed
+    by class (factors 64, 16, 4) and (16 s64 + 4 s16 + s4 - 12 |dc|) >> 5;
+    keys (cost field << 6 | index in the reference) with the saturation
+    and the out-of-plane field of the kernel; each lane's minimum per
+    reference over its rounds (c = lane + 32 k), then the minimum over the
+    lanes.  Every intermediate is asserted to fit the kernel's
+    int32 (the keys its uint32)."""
+    R, H, W = refs.shape
+    nbx, n = W // 8, (H // 8) * (W // 8)
+    b = np.arange(n)
+    cy, cx = (b // nbx) * 8, (b % nbx) * 8
+    P = per_warp
+    groups = -(-R // P)
+    ref = np.minimum(np.arange(groups)[:, None] * P + np.arange(P), R - 1)
+    v = v0.astype(np.int64)[ref]                          # (G, 3, n, 2)
+    vx, vy = v[..., 0], v[..., 1]
+    # windows (G, 3, 2, n, 12, 12): w = 0 at v0, w = 1 at zero
+    wx = np.stack([vx, 0 * vx], 2)
+    wy = np.stack([vy, 0 * vy], 2)
+    ys = np.clip((cy + wy)[..., None] - 2 + np.arange(12), 0, H - 1)
+    xs = np.clip((cx + wx)[..., None] - 2 + np.arange(12), 0, W - 1)
+    win = refs[ref[:, :, None, None, None, None], ys[..., :, None],
+               xs[..., None, :]].astype(np.int64)
+    col = _fits(_c4_stage(*(win[..., r:r + 9, :] for r in range(4))), 32)
+    # col (G, 3, 2, n, 9 row starts, 12 columns, 4)
+    cb = cur[(cy[:, None] + np.arange(8))[:, :, None],
+             (cx[:, None] + np.arange(8))[:, None, :]].astype(np.int64)
+    ccol = np.stack([_c4_stage(*(cb[:, 4 * qr + k] for k in range(4)))
+                     for qr in range(2)], 1)                # (n, 2, 8, 4)
+    g = np.stack([_c4_stage(*(ccol[:, q >> 1, 4 * (q & 1) + j]
+                              for j in range(4)))
+                  for q in range(4)], 1)                    # (n, 4, i, 4)
+    c = np.arange(50 * P)
+    rk, w, d = c // 50, (c % 50) // 25, c % 25
+    dx, dy = d % 5 - 2, d // 5 - 2
+    cost = np.zeros((groups, n, 50 * P), np.int64)
+    col = col.transpose(0, 3, 1, 2, 4, 5, 6)          # (G, n, 3, 2, 9, 12, 4)
+    for q in range(4):
+        qr, qc = q >> 1, q & 1
+        t = col[:, :, rk[:, None], w[:, None], (dy + 2 + 4 * qr)[:, None],
+                (dx + 2 + 4 * qc)[:, None] + np.arange(4)]
+        t = t.swapaxes(-1, -2)                        # (G, n, 150, i, j)
+        u = _c4_stage(*(t[..., j] for j in range(4)))       # (G,n,150,i,4)
+        u = _fits(u - g[:, q][None, :, None], 32)
+        a = np.abs(u)
+        s64 = a[..., 0::2, 0::2].sum((-2, -1))
+        s16 = a[..., 0::2, 1::2].sum((-2, -1)) + \
+            a[..., 1::2, 0::2].sum((-2, -1))
+        s4 = a[..., 1::2, 1::2].sum((-2, -1))
+        cost += _fits(16 * s64 + 4 * s16 + s4 - 12 * a[..., 0, 0], 32) >> 5
+    vxc, vyc = np.moveaxis(vx[:, rk], 1, 2), np.moveaxis(vy[:, rk], 1, 2)
+    wxc, wyc = np.where(w == 0, vxc, 0), np.where(w == 0, vyc, 0)
+    px, py = cx[:, None] + wxc + dx, cy[:, None] + wyc + dy
+    valid = (px >= 0) & (px <= W - 8) & (py >= 0) & (py <= H - 8)
+    pen = (np.abs(wxc + dx - vxc) + np.abs(wyc + dy - vyc)) * TI.PEN \
+        if penalty else 0 * px
+    field = np.where(valid, np.minimum(_fits(cost + pen, 32),
+                                       (1 << 26) - 2), (1 << 26) - 1)
+    key = _fits(field << 6 | c % 50, 32, signed=False)
+    rounds = -(-50 * P // 32)
+    lanes = np.full((groups, n, rounds, 32), 0xFFFFFFFF, np.int64)
+    lanes.reshape(groups, n, 32 * rounds)[..., :50 * P] = key
+    best = np.full((groups, n, 32, P), 0xFFFFFFFF, np.int64)
+    for k in range(rounds):
+        ck = np.arange(32) + 32 * k
+        for r in range(P):
+            mine = (ck // 50 == r) & (ck < 50 * P)
+            best[..., r] = np.where(mine, np.minimum(best[..., r],
+                                                     lanes[..., k, :]),
+                                    best[..., r])
+    m = best.min(2)                                         # (G, n, P)
+    idx = m & 63
+    out = np.zeros((R, n, 2), np.int64)
+    for gi in range(groups):
+        for r in range(P):
+            if P * gi + r >= R:
+                continue
+            i = idx[gi, :, r]
+            at_v = i // 25 == 0
+            d = i % 25
+            out[P * gi + r, :, 0] = np.where(at_v, vx[gi, r], 0) + d % 5 - 2
+            out[P * gi + r, :, 1] = np.where(at_v, vy[gi, r], 0) + d // 5 - 2
+    return out
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("extreme", [False, True])
+def test_fullpel_kernel_model_matches(size, extreme):
+    """The CUDA kernel's formulation (its numpy model) gives what
+    `fullpel_search_plain` and the JAX package's `search_level` give, with
+    penalty on and off, start vectors 12 pels past every edge (and rate 2:
+    the inherited vectors halved), and with an all-0 block searched in
+    all-255 windows (the largest column- and row-stage values)."""
+    cur_t, refs_t, cur_j, ref_pyr = _setup(size)
+    if extreme:                 # rebuild the pyramids from altered planes
+        f = _frames(size)
+        f[3].y[:16, :16] = 0
+        for g in f[:3]:
+            g.y[:32, :32] = 255
+        refs = np.stack([g.y for g in f[:3]])
+        H, W = refs.shape[1:]
+        cur_t = TI.build_pyramid(torch.from_numpy(f[3].y))
+        refs_t = [torch.stack(lv) for lv in zip(
+            *(TI.build_pyramid(torch.from_numpy(r)) for r in refs))]
+        cur_j = [jnp.asarray(f[3].y)]
+        for _ in range(4):
+            cur_j.append(JI.downsample2(cur_j[-1]))
+        ref_pyr = JI.build_ref_pyramid(jnp.asarray(refs), H, W)
+    for lvl, rate, penalty in ((0, 1, True), (0, 1, False), (1, 2, True)):
+        h, w = cur_t[lvl].shape
+        hc, wc = cur_t[lvl + 1].shape
+        rng = np.random.default_rng(h + lvl)
+        src = rng.integers(-12 * rate, 12 * rate + 1,
+                           (3, hc // 8, wc // 8, 2)).astype(np.int32)
+        src[:, 0, 0], src[:, -1, -1] = -12 * rate, 12 * rate
+        src[:, 0, -1] = (12 * rate, -12 * rate)
+        src[:, -1, 0] = (-12 * rate, 12 * rate)
+        v0 = TI.inherit_vectors(torch.from_numpy(src), 3, h // 8, w // 8,
+                                rate, "cpu")
+        assert (v0.abs() == 12).any()
+        plain = TI.fullpel_search_plain(cur_t[lvl], refs_t[lvl], v0, penalty)
+        for per_warp in (1, 3):
+            got = _fullpel_kernel_model(cur_t[lvl].numpy(),
+                                        refs_t[lvl].numpy(), v0.numpy(),
+                                        penalty, per_warp)
+            _eq(plain, got, f"plain, level {lvl}, penalty {penalty}, "
+                f"{per_warp} references a warp")
+        plane, pads, _ = ref_pyr[lvl]
+        want = _jit(lambda c, p, s_: JI.search_level(c, p, pads, s_, rate,
+                                                     penalty))(
+            cur_j[lvl], plane, jnp.asarray(src))
+        _eq(got.reshape(3, h // 8, w // 8, 2) * rate, want,
+            f"jax, level {lvl}, penalty {penalty}")
+
+
 @pytest.mark.parametrize("size", SIZES)
 def test_hierarchical_search_matches(size):
     cur_t, refs_t, cur_j, ref_pyr = _setup(size, seed=9)

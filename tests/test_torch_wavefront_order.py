@@ -14,17 +14,20 @@ reconstruction poisoned with a sentinel wherever nothing is coded yet.
 Every such order must give the plain versions' outputs, and the JAX
 package's, bit for bit (tolerance 0); with a lag of 1 instead of 2 (chroma:
 0 instead of 1) the outputs must differ, which shows that the test can
-fail."""
+fail.  The luma trial's in-MB order is tested the same way, at the end.
+"""
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
+from vp8oclenc_tpu.ops import intra_replace as JR
 from vp8oclenc_tpu.ops.intra import build_intra_kernel
 from vp8oclenc_tpu.ops.loopfilter import filter_planes as jax_filter_planes
 from vp8oclenc_tpu.pipeline.segments import derive_filter_limits
 from vp8oclenc_tpu_torch.ops import intra as TI
+from vp8oclenc_tpu_torch.ops import intra_replace as TR
 from vp8oclenc_tpu_torch.ops import loopfilter as TLF
 
 SIZES = [(96, 80), (48, 96), (16, 64)]          # (w, h)
@@ -228,3 +231,111 @@ def test_chroma_without_the_lag_differs(seed):
                           lag=0)
     got = _chroma_in_order(uv, (8, 10), order)
     assert not torch.equal(got[0], want[0])
+
+
+# The luma trial (csrc/intra.cu, trial_luma_kernel) may code block (bx, by)
+# of an MB once its left, above, above-left and (bx < 3) above-right
+# neighbours are coded; the kernel takes them in raster order, one MB a
+# half-warp (an earlier version took the wavefront d = bx + 2*by, two
+# blocks a step).  Here an MB's blocks run through `trial_step` in random
+# orders of steps of one or two blocks that rule allows, each MB its own
+# order, from a poisoned reconstruction; the blocks of one step read before
+# either writes.
+
+def _trial_deps(b):
+    bx, by = b % 4, b // 4
+    deps = []
+    if bx:
+        deps.append(b - 1)
+    if by:
+        deps += [b - 4] + ([b - 5] if bx else []) + ([b - 3] if bx < 3 else [])
+    return deps
+
+
+def trial_steps(rng):
+    """A random order of an MB's 16 blocks in steps of one or two blocks,
+    each block after its neighbours, the two of a step independent."""
+    done, steps = set(), []
+    while len(done) < 16:
+        ready = [b for b in range(16) if b not in done
+                 and all(d in done for d in _trial_deps(b))]
+        k = 2 if len(ready) > 1 and rng.random() < 0.7 else 1
+        step = [int(b) for b in rng.choice(ready, k, replace=False)]
+        steps.append(step)
+        done.update(step)
+    return steps
+
+
+RASTER = [[b] for b in range(16)]
+WAVEFRONT = [[0], [1], [2, 4], [3, 5], [6, 8], [7, 9], [10, 12], [11, 13],
+             [14], [15]]
+
+
+def _trial_inputs(mbc, seed):
+    """Sources and frozen neighbours: noise, a ramp, all 0, all 255."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 256, (mbc, 16, 16))
+    y[1::4] = np.add.outer(np.arange(16), np.arange(16)) * 5 + 30
+    y[2::4], y[3::4] = 0, 255
+    t = lambda *s: torch.from_numpy(rng.integers(0, 256, s).astype(np.uint8))
+    return torch.from_numpy(y.astype(np.uint8)), t(mbc, 21), t(mbc, 16)
+
+
+def _trial_in_order(inputs, q, orders):
+    """Each MB's steps (orders[mb]) through `trial_step`; step t of every
+    MB in one call."""
+    st = TR.trial_state(*inputs)
+    st["edge"][:, 1:, 1:17] = SENTINEL
+    for t in range(max(len(o) for o in orders)):
+        pairs = [(mb, b) for mb, o in enumerate(orders) if t < len(o)
+                 for b in o[t]]
+        mb, blk = (torch.tensor(v) for v in zip(*pairs))
+        TR.trial_step(st, mb, blk, *q)
+    return TR.trial_result(st)
+
+
+def test_trial_steps_follow_the_rule():
+    for d, blocks in enumerate(WAVEFRONT):
+        assert all(b % 4 + 2 * (b // 4) == d for b in blocks)
+        assert all(e % 4 + 2 * (e // 4) < d
+                   for b in blocks for e in _trial_deps(b))
+    assert all(e < b for b in range(16) for e in _trial_deps(b))   # raster
+    rng = np.random.default_rng(0)
+    orders = [trial_steps(rng) for _ in range(20)]
+    assert len({str(o) for o in orders}) == 20
+    assert any(len(s) == 2 for o in orders for s in o)
+    # pairs that the wavefront never makes
+    assert any(len(s) == 2 and sorted(s) not in WAVEFRONT
+               for o in orders for s in o)
+
+
+@pytest.mark.parametrize("q", [(4, 4), (60, 75), (157, 284)])
+def test_trial_in_any_allowed_order(q):
+    mbc = 24
+    inputs = _trial_inputs(mbc, q[0])
+    rng = np.random.default_rng(q[1])
+    orders = [RASTER, WAVEFRONT] + [trial_steps(rng) for _ in range(mbc - 2)]
+    got = _trial_in_order(inputs, q, orders)
+    want = TR.trial_luma_plain(*inputs, *q)
+    for g, p in zip(got, want):
+        assert g.dtype == p.dtype and torch.equal(g, p)
+    assert len(torch.unique(got[1])) > 3         # several modes in use
+    jx = JR._trial_luma(*(jnp.asarray(t.numpy().astype(np.int32))
+                          for t in inputs), *q)
+    for g, j in zip(got, jx):
+        assert np.array_equal(g.numpy().astype(np.int64), np.asarray(j))
+
+
+@pytest.mark.parametrize("steps", [
+    [[0], [4], [1]],                 # (0, 1) before its above-right (1, 0)
+    [[0], [1, 4]]])                  # the two in one step
+def test_trial_before_the_above_right_differs(steps):
+    """Block (0, 1) coded before (1, 0), or beside it, reads an above-right
+    neighbour that is not coded yet."""
+    mbc = 8
+    inputs = _trial_inputs(mbc, 5)
+    q = (60, 75)
+    rest = [[b] for b in range(16) if all(b not in s for s in steps)]
+    got = _trial_in_order(inputs, q, [steps + rest] * mbc)
+    want = TR.trial_luma_plain(*inputs, *q)
+    assert not torch.equal(got[2], want[2])

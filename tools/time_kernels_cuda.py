@@ -1,19 +1,22 @@
-"""Times of the port's two redesigned-last CUDA kernels, `qpel_search` and
-`chroma_wavefront`, and of the four others, at 1920x1088 on one NVIDIA GPU,
-for comparing two trees on the same card in one command.
+"""Times of the port's six CUDA kernels at 1920x1088 on one NVIDIA GPU,
+by the card's clock, for comparing two trees on the same card in one
+command.
 
     python3 tools/time_kernels_cuda.py [--root DIR]
 
 `--root` names the checkout whose `vp8oclenc_tpu_torch` is timed (default:
 the one this file is in), so an older tree unpacked beside this one can be
 run in turns with it.  Inputs are chip_smoke.py's, made from seeds: the
-padded synthetic frame at qi 10 for the intra kernels and the filter, the
-panned canvas's full-resolution planes with vectors of a real hierarchical
-search for the two searches.  Every kernel is held against its plain
-version first (bit-exact or the run fails), then timed over 20 launches
-after a warm-up with CUDA events, three times; the line printed is one
-JSON object with the least and the median of the three for each kernel,
-and the card's name and power limit.
+padded synthetic frame at qi 10 for the intra kernels and the filter; the
+panned canvas's pyramid with the vectors of a real hierarchical search for
+the searches, the full-pel search at each of its five levels 4..0; the luma
+trial on that frame's MBs with neighbours from its reconstruction, at the
+AQ, HQ and UQ quantizers of -qmin 50 -qmax 112.  Every kernel is held
+against its plain version first (bit-exact or the run fails), then timed
+by chip_smoke.cuda_ms (20 launches queued behind a sleep of the card, so
+the CUDA events time the card, not the host's issue), three times; the
+line printed is one JSON object with the least and the median of the three
+for each kernel, and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -74,14 +77,21 @@ def main() -> int:
     cur = IN.build_pyramid(mv[3])
     refs = [torch.stack(lv).contiguous()
             for lv in zip(*(IN.build_pyramid(p) for p in mv[:3]))]
+    levels = {}                       # level: (cur, refs, v0, penalty)
     vec = None
-    for lvl, rate in ((4, 16), (3, 8), (2, 4), (1, 2)):
-        vec = IN.search_level(cur[lvl], refs[lvl], vec, rate, rate < 4)
-    v0 = IN.inherit_vectors(vec, 3, y.shape[0] // 8, y.shape[1] // 8, 1, dev)
-    fv = IN.fullpel_search(cur[0], refs[0], v0, True)
+    for lvl, rate in ((4, 16), (3, 8), (2, 4), (1, 2), (0, 1)):
+        h, w = cur[lvl].shape
+        v0 = IN.inherit_vectors(vec, 3, h // 8, w // 8, rate, dev)
+        levels[lvl] = (cur[lvl], refs[lvl], v0, rate < 4)
+        vec = (IN.fullpel_search(*levels[lvl]) * rate).reshape(
+            3, h // 8, w // 8, 2)
+    fv = vec.reshape(3, -1, 2).contiguous()
     ftop, fleft = IR._frozen_luma_neighbors(rec_y, y.shape[1] // 16,
                                             y.shape[0] // 16)
     y_mb = IR._plane_mb(y, 16).contiguous()
+    sseg = prepare_segments(EncoderConfig(qi_min=50, qi_max=112,
+                                          ssim_target=0.98), f.y, False,
+                            False)
 
     tup = lambda r: r if isinstance(r, (tuple, list)) else (r,)
     cases = {
@@ -89,17 +99,21 @@ def main() -> int:
                         lambda: IN.qpel_search_plain(cur[0], refs[0], fv)),
         "chroma_wavefront": (lambda: I.chroma_wavefront(uv, *cq),
                              lambda: I.chroma_wavefront_plain(uv, *cq)),
-        "fullpel_search_level0": (
-            lambda: IN.fullpel_search(cur[0], refs[0], v0, True),
-            lambda: IN.fullpel_search_plain(cur[0], refs[0], v0, True)),
         "luma_wavefront": (lambda: I.luma_wavefront(y, *yq),
                            lambda: I.luma_wavefront_plain(y, *yq)),
         "loop_filter": (
             lambda: LF.filter_planes(*planes, sid, inner, *lf),
             lambda: LF.filter_planes_plain(*planes, sid, inner, *lf)),
-        "trial_luma": (lambda: IR.trial_luma(y_mb, ftop, fleft, *yq),
-                       lambda: IR.trial_luma_plain(y_mb, ftop, fleft, *yq)),
     }
+    for lvl, args in levels.items():
+        cases[f"fullpel_search_level{lvl}"] = (
+            lambda a=args: IN.fullpel_search(*a),
+            lambda a=args: IN.fullpel_search_plain(*a))
+    for name, s_ in (("aq", 2), ("hq", 1), ("uq", 0)):
+        q = (int(sseg.y_dc_q[s_]), int(sseg.y_ac_q[s_]))
+        cases[f"trial_luma_{name}"] = (
+            lambda q=q: IR.trial_luma(y_mb, ftop, fleft, *q),
+            lambda q=q: IR.trial_luma_plain(y_mb, ftop, fleft, *q))
     out = {"root": root, "card": nvidia_smi_line(), "ms": {}}
     for name, (kfn, pfn) in cases.items():
         err = max_abs_err(tup(kfn()), tup(pfn()))
@@ -108,6 +122,9 @@ def main() -> int:
                                  f"version by {err}")
         ms = [cuda_ms(kfn, reps=20) for _ in range(3)]
         out["ms"][name] = {"min": min(ms), "median": statistics.median(ms)}
+    out["ms"]["fullpel_search_5_levels"] = {
+        k: sum(out["ms"][f"fullpel_search_level{lvl}"][k] for lvl in levels)
+        for k in ("min", "median")}
     print(json.dumps(out), flush=True)
     return 0
 

@@ -103,100 +103,6 @@ __device__ __forceinline__ int avg3(int a, int b, int c) {
   return (a + 2 * b + c + 2) >> 2;
 }
 
-// One B_PRED predictor (RFC 6386 §12.3), mode order DC TM VE HE LD RD VR VL
-// HD HU.  A[8] above incl. above-right, L[4] left, P above-left.
-__device__ __forceinline__ void bpred(int m, const int* A, const int* L, int P,
-                                      int* o) {
-  switch (m) {
-    case 0: {
-      int dc = (A[0] + A[1] + A[2] + A[3] + L[0] + L[1] + L[2] + L[3] + 4) >> 3;
-      for (int i = 0; i < 16; ++i) o[i] = dc;
-      break;
-    }
-    case 1:
-      for (int r = 0; r < 4; ++r)
-        for (int c = 0; c < 4; ++c) o[r * 4 + c] = clamp255(A[c] + L[r] - P);
-      break;
-    case 2: {
-      int v0 = avg3(P, A[0], A[1]), v1 = avg3(A[0], A[1], A[2]);
-      int v2 = avg3(A[1], A[2], A[3]), v3 = avg3(A[2], A[3], A[4]);
-      for (int r = 0; r < 4; ++r) {
-        o[r * 4 + 0] = v0; o[r * 4 + 1] = v1;
-        o[r * 4 + 2] = v2; o[r * 4 + 3] = v3;
-      }
-      break;
-    }
-    case 3: {
-      int h[4] = {avg3(P, L[0], L[1]), avg3(L[0], L[1], L[2]),
-                  avg3(L[1], L[2], L[3]), avg3(L[2], L[3], L[3])};
-      for (int r = 0; r < 4; ++r)
-        for (int c = 0; c < 4; ++c) o[r * 4 + c] = h[r];
-      break;
-    }
-    case 4: {  // LD: f(r + c)
-      int f[7] = {avg3(A[0], A[1], A[2]), avg3(A[1], A[2], A[3]),
-                  avg3(A[2], A[3], A[4]), avg3(A[3], A[4], A[5]),
-                  avg3(A[4], A[5], A[6]), avg3(A[5], A[6], A[7]),
-                  avg3(A[6], A[7], A[7])};
-      for (int r = 0; r < 4; ++r)
-        for (int c = 0; c < 4; ++c) o[r * 4 + c] = f[r + c];
-      break;
-    }
-    case 5: {  // RD: e(r - c), index r - c + 3
-      int e[7] = {avg3(A[1], A[2], A[3]), avg3(A[0], A[1], A[2]),
-                  avg3(P, A[0], A[1]),    avg3(L[0], P, A[0]),
-                  avg3(L[1], L[0], P),    avg3(L[2], L[1], L[0]),
-                  avg3(L[3], L[2], L[1])};
-      for (int r = 0; r < 4; ++r)
-        for (int c = 0; c < 4; ++c) o[r * 4 + c] = e[r - c + 3];
-      break;
-    }
-    case 6: {  // VR
-      int c_ = avg3(L[2], L[1], L[0]), b_ = avg3(L[1], L[0], P);
-      int a_ = avg3(L[0], P, A[0]);
-      int v0 = avg2(P, A[0]), v1 = avg3(P, A[0], A[1]), v2 = avg2(A[0], A[1]);
-      int v3 = avg3(A[0], A[1], A[2]), v4 = avg2(A[1], A[2]);
-      int v5 = avg3(A[1], A[2], A[3]), v6 = avg2(A[2], A[3]);
-      int t[16] = {v0, v2, v4, v6, a_, v1, v3, v5,
-                   b_, v0, v2, v4, c_, a_, v1, v3};
-      for (int i = 0; i < 16; ++i) o[i] = t[i];
-      break;
-    }
-    case 7: {  // VL
-      int v0 = avg2(A[0], A[1]), v1 = avg3(A[0], A[1], A[2]);
-      int v2 = avg2(A[1], A[2]), v3 = avg3(A[1], A[2], A[3]);
-      int v4 = avg2(A[2], A[3]), v5 = avg3(A[2], A[3], A[4]);
-      int v6 = avg2(A[3], A[4]), v7 = avg3(A[3], A[4], A[5]);
-      int v8 = avg3(A[4], A[5], A[6]), v9 = avg3(A[5], A[6], A[7]);
-      int t[16] = {v0, v2, v4, v6, v1, v3, v5, v7,
-                   v2, v4, v6, v8, v3, v5, v7, v9};
-      for (int i = 0; i < 16; ++i) o[i] = t[i];
-      break;
-    }
-    case 8: {  // HD
-      int h0 = avg2(L[0], P), h1 = avg3(L[0], P, A[0]);
-      int h2 = avg3(P, A[0], A[1]), h3 = avg3(A[0], A[1], A[2]);
-      int h4 = avg2(L[1], L[0]), h5 = avg3(L[1], L[0], P);
-      int h6 = avg2(L[2], L[1]), h7 = avg3(L[2], L[1], L[0]);
-      int h8 = avg2(L[3], L[2]), h9 = avg3(L[3], L[2], L[1]);
-      int t[16] = {h0, h1, h2, h3, h4, h5, h0, h1,
-                   h6, h7, h4, h5, h8, h9, h6, h7};
-      for (int i = 0; i < 16; ++i) o[i] = t[i];
-      break;
-    }
-    default: {  // HU
-      int u0 = avg2(L[0], L[1]), u1 = avg3(L[0], L[1], L[2]);
-      int u2 = avg2(L[1], L[2]), u3 = avg3(L[1], L[2], L[3]);
-      int u4 = avg2(L[2], L[3]), u5 = avg3(L[2], L[3], L[3]);
-      int l3 = L[3];
-      int t[16] = {u0, u1, u2, u3, u2, u3, u4, u5,
-                   u4, u5, l3, l3, l3, l3, l3, l3};
-      for (int i = 0; i < 16; ++i) o[i] = t[i];
-      break;
-    }
-  }
-}
-
 // Rows of tables.COST_C applied to (x0, x1, x2, x3).
 __device__ __forceinline__ void cost_c4(int x0, int x1, int x2, int x3,
                                         int* o) {
@@ -325,43 +231,14 @@ __device__ __forceinline__ void code_block(const int* res, const int* pred,
   for (int i = 0; i < 16; ++i) rec[i] = clamp255(rr[i] + pred[i]);
 }
 
-// One B_PRED block from its source pixels and neighbours: the earliest of
-// the 10 modes with the least cost, then the winner coded, by one thread
-// (`trial_luma_kernel`).  The mode loop stays rolled: unrolled, the ten
-// predictors need 255 registers.  Returns the mode; lev gets the raster
-// levels, out the reconstructed pixels.
-__device__ __forceinline__ int search_and_code(const int* src, const int* A,
-                                               const int* L, int P,
-                                               const Quant& dc_q,
-                                               const Quant& ac_q, int* lev,
-                                               int* out) {
-  int best = 0, best_cost = 0;
-#pragma unroll 1
-  for (int m = 0; m < 10; ++m) {
-    int cand[16], res[16];
-    bpred(m, A, L, P, cand);
-    for (int i = 0; i < 16; ++i) res[i] = src[i] - cand[i];
-    int cost = dct_weight(res);
-    if (m == 0 || cost < best_cost) {  // first minimum
-      best_cost = cost;
-      best = m;
-    }
-  }
-  int pred[16], res[16];
-  bpred(best, A, L, P, pred);
-  for (int i = 0; i < 16; ++i) res[i] = src[i] - pred[i];
-  code_block(res, pred, dc_q, ac_q, lev, out);
-  return best;
-}
-
-// The ten B_PRED predictors, table-driven for `search_and_code_warp`.  With
+// The ten B_PRED predictors, table-driven (`search_and_code_warp`,
+// `trial_luma_kernel`).  With
 // the edge E[0..12] = L3 L2 L1 L0 P A0..A7 (E[-1] = E[0], E[13] = E[12]),
 // every predicted pixel of every mode is one of 43 values: F[i] =
 // avg3(E[i-1], E[i], E[i+1]) at 0..12, G[i] = avg2(E[i], E[i+1]) at 13..24,
 // L3 at 25, the DC value at 26 and the 16 TM pixels at 27..42.  Row m holds
-// mode m's 16 indices into that array, one byte each, pixel 0 lowest.  The
-// same predictors as `bpred`; tests hold the two kernels that use them
-// against one plain version.
+// mode m's 16 indices into that array, one byte each, pixel 0 lowest; the
+// plain versions' `bpred_all_modes` computes the same predictors.
 constexpr int kPredVals = 43;
 __constant__ uint32_t kPredTab[10][4] = {
     {0x1a1a1a1au, 0x1a1a1a1au, 0x1a1a1a1au, 0x1a1a1a1au},   // DC
@@ -381,36 +258,40 @@ __device__ __forceinline__ int byte_of(uint32_t w0, uint32_t w1, uint32_t w2,
   return __byte_perm(k < 8 ? w0 : w2, k < 8 ? w1 : w3, k & 7) & 255;
 }
 
-// One B_PRED block by a whole warp.  wl = L3 L2 L1 L0, a03 = A0..A3, a47 =
-// A4..A7 as bytes, lowest first.  The lanes build the 43 predictor values
-// in `vals` (shared memory, one lane a value); lanes 0..9 then gather one
-// predictor each through `tab` (their row of kPredTab) and score it; the
-// earliest minimum is one __reduce_min_sync over (cost << 4 | mode) (a
-// cost is below 2^27); every lane then codes the winner, so that each
-// holds the whole result and nothing has to be handed round.  Cost and
-// coding are the device functions `search_and_code` uses.  The caller
-// synchronises the warp before the next call (`vals` is reused).
+// The 43 predictor values of one block into `vals` by 16 lanes, l = 0..15:
+// F[l] (l < 13), G[l] (l < 12), TM pixel l, and L3 and the DC value (l =
+// 13).  wl = L3 L2 L1 L0, a03 = A0..A3, a47 = A4..A7 as bytes, lowest
+// first.
+__device__ __forceinline__ void pred_values(int l, uint32_t wl, uint32_t a03,
+                                            uint32_t a47, int P, int* vals) {
+  const uint32_t w1 = (uint32_t)P | a03 << 8, w2 = a03 >> 24 | a47 << 8,
+                 w3 = a47 >> 24;
+  const int i = l < 12 ? l : 12;
+  const int em = byte_of(wl, w1, w2, w3, i > 0 ? i - 1 : 0);
+  const int e0 = byte_of(wl, w1, w2, w3, i);
+  const int ep = byte_of(wl, w1, w2, w3, i < 12 ? i + 1 : 12);
+  if (l < 13) vals[l] = avg3(em, e0, ep);
+  if (l < 12) vals[13 + l] = avg2(e0, ep);
+  vals[27 + l] = clamp255(byte_of(wl, w1, w2, w3, 5 + (l & 3)) +
+                          byte_of(wl, w1, w2, w3, 3 - (l >> 2)) - P);
+  if (l == 13) {
+    vals[25] = wl & 255u;
+    vals[26] = (__vsadu4(a03, 0u) + __vsadu4(wl, 0u) + 4) >> 3;
+  }
+}
+
+// One B_PRED block by a whole warp.  Lanes 0..15 build the 43 predictor
+// values in `vals` (shared memory); lanes 0..9 then gather one predictor
+// each through `tab` (their row of kPredTab) and score it; the earliest
+// minimum is one __reduce_min_sync over (cost << 4 | mode) (a cost is below
+// 2^27); every lane then codes the winner, so that each holds the whole
+// result and nothing has to be handed round.  The caller synchronises the
+// warp before the next call (`vals` is reused).
 __device__ __forceinline__ int search_and_code_warp(
     const int* src, uint32_t wl, uint32_t a03, uint32_t a47, int P,
     const Quant& dc_q, const Quant& ac_q, int lane, const uint32_t* tab,
     int* vals, int* lev, int* out) {
-  const uint32_t w1 = (uint32_t)P | a03 << 8, w2 = a03 >> 24 | a47 << 8,
-                 w3 = a47 >> 24;
-  {
-    const int i = lane < 12 ? lane : 12;
-    const int em = byte_of(wl, w1, w2, w3, i > 0 ? i - 1 : 0);
-    const int e0 = byte_of(wl, w1, w2, w3, i);
-    const int ep = byte_of(wl, w1, w2, w3, i < 12 ? i + 1 : 12);
-    if (lane < 13) vals[lane] = avg3(em, e0, ep);
-    if (lane < 12) vals[13 + lane] = avg2(e0, ep);
-    if (lane < 16)
-      vals[27 + lane] = clamp255(byte_of(wl, w1, w2, w3, 5 + (lane & 3)) +
-                                 byte_of(wl, w1, w2, w3, 3 - (lane >> 2)) - P);
-    if (lane == 16) {
-      vals[25] = wl & 255u;
-      vals[26] = (__vsadu4(a03, 0u) + __vsadu4(wl, 0u) + 4) >> 3;
-    }
-  }
+  if (lane < 16) pred_values(lane, wl, a03, a47, P, vals);
   __syncwarp();
   int pred[16], res[16];
   for (int i = 0; i < 16; ++i) {
@@ -718,68 +599,173 @@ __global__ void __launch_bounds__(kChromaThreads)
 //
 // What bounds it: operations (16 blocks x 10 predictors per MB, ~38k integer
 // operations against ~1 KB moved per MB), and inside an MB the 16 blocks
-// form a dependent chain.  Design: one thread per MB, 32 MBs per CTA, so
-// 1080p is 255 CTAs spread over the SMs.  A block's neighbours outside the
-// MB come from the frozen row `ftop` = [P, A0..A19] and column `fleft`,
-// never from another MB's result; neighbours inside the MB come from the
-// MB's own trial reconstruction, kept in shared memory with the 32 MBs'
-// bytes of one pixel adjacent (no bank conflicts).  The border values are
-// made by the caller.  Levels, modes and reconstruction go straight into
-// their final layouts.
-constexpr int kTrialThreads = 32;
+// form a dependent chain.  Design: a block is spread over the 16 lanes of a
+// half-warp, and each half-warp walks its own MB's 16 blocks in raster
+// order: two MBs a warp, 8 warps a CTA (4080 warps at 1080p).
+//   * Why not the in-MB wavefront.  Block (bx, by) needs its left, above,
+//     above-left and, for bx < 3, above-right neighbours, so an MB could run
+//     as the 10 steps d = bx + 2*by with the two blocks of steps 2..7 on the
+//     two half-warps.  That design ran first: its steps 0, 1, 8 and 9 hold
+//     one block, so one half of the warp idles through 4 of 10 steps, and
+//     the kernel is bound by issue slots, not by its chains.  A warp of two
+//     MBs issues 16 steps where two wavefront warps issue 20: 0.040 ms a
+//     launch where the wavefront took 0.053 at 1080p (PERF.md).
+//   * A half-warp builds the 43 predictor values (`pred_values`); its lanes
+//     0..9 score one mode each through kPredTab; two full-warp
+//     __reduce_min_sync over (cost << 4 | mode) give each half its earliest
+//     minimum; then lane l codes pixel (l >> 2, l & 3): the forward and
+//     inverse transforms run one coefficient a lane, a pass reading its row
+//     or column through four shuffles inside the half, and the quantizer
+//     divides by `Quant`.
+//   * Shared memory holds each MB: its 256 source bytes (16-byte loads) and
+//     an edge array in which every pixel a block predicts from sits at
+//     E[r * 32 + c]: the frozen row above (r = -1: P, A0..A19), the frozen
+//     column left (c = -1), the trial reconstruction (0..15), and
+//     ftop[17:21] at columns 16..19 of rows 3, 7, 11 (a row's columns 16..19
+//     are the next row's unused bytes), so every block reads its A0..A7 as
+//     two words and L and P as bytes, with no case for the MB's border.
+//     Levels go out a coefficient a lane in zigzag order (one 32-byte
+//     sector a block), the reconstruction as 16 16-byte stores.
+// The launcher needs y_mb and rec 16-byte aligned.
+constexpr int kTrialWarps = 8;              // warps (2 MBs each) per CTA
+constexpr int kEdgeBytes = 18 * 32;         // rows -1..15 and the spill row
 
-__global__ void __launch_bounds__(kTrialThreads)
+__global__ void __launch_bounds__(kTrialWarps * 32)
     trial_luma_kernel(const uint8_t* __restrict__ y_mb,
                       const uint8_t* __restrict__ ftop,
                       const uint8_t* __restrict__ fleft,
                       int16_t* __restrict__ levels, int8_t* __restrict__ modes,
                       uint8_t* __restrict__ rec, int mbc, int dc, int ac) {
-  const Quant dc_q = make_quant(dc), ac_q = make_quant(ac);
-  __shared__ uint8_t trial[256 * kTrialThreads];
-  const int mb = blockIdx.x * kTrialThreads + threadIdx.x;
-  if (mb >= mbc) return;
-  uint8_t* mine = trial + threadIdx.x;        // pixel (r, c) at (r*16+c)*32
-  const uint8_t* src_mb = y_mb + (size_t)mb * 256;
-  const uint8_t* top = ftop + (size_t)mb * 21;
-  const uint8_t* left = fleft + (size_t)mb * 16;
-#pragma unroll 1
-  for (int b = 0; b < 16; ++b) {
-    const int r0 = (b >> 2) * 4, c0 = (b & 3) * 4;
-    int A[8], L[4], P;
-    if (r0 == 0) {
-      for (int j = 0; j < 8; ++j) A[j] = top[1 + c0 + j];
-      P = top[c0];
-    } else {
-      const uint8_t* above = mine + ((r0 - 1) * 16) * kTrialThreads;
-      for (int j = 0; j < 4; ++j) A[j] = above[(c0 + j) * kTrialThreads];
-      if (c0 < 12) {
-        for (int j = 0; j < 4; ++j)
-          A[4 + j] = above[(c0 + 4 + j) * kTrialThreads];
-      } else {  // the row above the MB, as on a keyframe
-        for (int j = 0; j < 4; ++j) A[4 + j] = top[17 + j];
-      }
-      P = c0 == 0 ? left[r0 - 1] : above[(c0 - 1) * kTrialThreads];
-    }
-    for (int r = 0; r < 4; ++r)
-      L[r] = c0 == 0 ? left[r0 + r]
-                     : mine[((r0 + r) * 16 + c0 - 1) * kTrialThreads];
-
-    int src[16];
-    for (int r = 0; r < 4; ++r)
-      for (int c = 0; c < 4; ++c) src[r * 4 + c] = src_mb[(r0 + r) * 16 + c0 + c];
-
-    int lev[16], out[16];
-    const int best = search_and_code(src, A, L, P, dc_q, ac_q, lev, out);
-    uint8_t* rec_mb = rec + (size_t)mb * 256;
-    for (int r = 0; r < 4; ++r)
-      for (int c = 0; c < 4; ++c) {
-        mine[((r0 + r) * 16 + c0 + c) * kTrialThreads] = (uint8_t)out[r * 4 + c];
-        rec_mb[(r0 + r) * 16 + c0 + c] = (uint8_t)out[r * 4 + c];
-      }
-    int16_t* lz = levels + ((size_t)mb * 16 + b) * 16;
-    for (int i = 0; i < 16; ++i) lz[kInvZigzag[i]] = (int16_t)lev[i];
-    modes[(size_t)mb * 16 + b] = (int8_t)best;
+  __shared__ uint32_t s_tab[10][4];
+  __shared__ __align__(16) uint8_t s_edge[kTrialWarps][2][kEdgeBytes];
+  __shared__ __align__(16) uint8_t s_src[kTrialWarps][2][256];
+  __shared__ int s_vals[kTrialWarps][2][48];
+  if (threadIdx.x < 40)
+    s_tab[threadIdx.x >> 2][threadIdx.x & 3] =
+        kPredTab[threadIdx.x >> 2][threadIdx.x & 3];
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = lane >> 4, l = lane & 15, pr = l >> 2, pc = l & 3;
+  const int mb0 = 2 * (blockIdx.x * kTrialWarps + warp);
+  if (mb0 >= mbc) return;                // whole warps: no barrier follows
+  const int mb = min(mb0 + h, mbc - 1);  // past the end: the last MB again
+  const int base = lane & 16;            // first lane of my half
+  uint8_t* E = s_edge[warp][h] + 48;     // pixel (r, c) at E[r * 32 + c]
+  const uint8_t* src = s_src[warp][h];
+  int* vals = s_vals[warp][h];
+  {
+    const uint8_t* t = ftop + (size_t)mb * 21;
+    E[-33 + l] = t[l];                               // row -1: P, A0..A19
+    if (l < 5) E[-33 + 16 + l] = t[16 + l];
+    if (l < 12) E[(3 + 4 * (l >> 2)) * 32 + 16 + (l & 3)] =
+        t[17 + (l & 3)];                             // rows 3, 7, 11
+    E[l * 32 - 1] = fleft[(size_t)mb * 16 + l];
+    reinterpret_cast<uint4*>(s_src[warp][h])[l] =
+        __ldg(reinterpret_cast<const uint4*>(y_mb + (size_t)mb * 256) + l);
   }
+  __syncwarp();
+  const int m = l < 10 ? l : 9;          // the mode this lane scores
+  const uint32_t tab[4] = {s_tab[m][0], s_tab[m][1], s_tab[m][2],
+                           s_tab[m][3]};
+  const int zz = kInvZigzag[l];
+  const Quant q = l == 0 ? make_quant(dc) : make_quant(ac);
+  constexpr int s35 = 35468, cm1 = 20091;
+#pragma unroll 1
+  for (int blk = 0; blk < 16; ++blk) {
+    const int r0 = (blk >> 2) * 4, c0 = (blk & 3) * 4;
+    const uint8_t* e = E + (r0 - 1) * 32 + c0;        // A0 of the block
+    const uint32_t a03 = *reinterpret_cast<const uint32_t*>(e);
+    const uint32_t a47 = *reinterpret_cast<const uint32_t*>(e + 4);
+    const int P = e[-1];
+    const uint32_t wl = (uint32_t)e[32 * 4 - 1] |          // L3 L2 L1 L0
+                        (uint32_t)e[32 * 3 - 1] << 8 |
+                        (uint32_t)e[32 * 2 - 1] << 16 | (uint32_t)e[31] << 24;
+    pred_values(l, wl, a03, a47, P, vals);
+    __syncwarp();
+
+    // lanes 0..9 of each half: the cost of mode l
+    int key;
+    {
+      int res[16];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const uint32_t w =
+            *reinterpret_cast<const uint32_t*>(src + (r0 + r) * 16 + c0);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          res[r * 4 + c] = (int)((w >> (8 * c)) & 255u) -
+                           vals[(tab[r] >> (8 * c)) & 255u];
+      }
+      const int cost = dct_weight(res);
+      key = l < 10 ? (cost << 4) | l : 0x7fffffff;
+    }
+    const int k0 = __reduce_min_sync(0xffffffffu, h ? 0x7fffffff : key);
+    const int k1 = __reduce_min_sync(0xffffffffu, h ? key : 0x7fffffff);
+    const int best = (h ? k1 : k0) & 15;
+
+    // lane l codes pixel (pr, pc) of the winner
+    const int pp = vals[(s_tab[best][pr] >> (8 * pc)) & 255u];
+    const int x = (int)src[(r0 + pr) * 16 + c0 + pc] - pp;
+    int v[4];
+    // fdct4x4, rows
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      v[k] = __shfl_sync(0xffffffffu, x, base + 4 * pr + k);
+    int t;
+    {
+      const int a1 = (v[0] + v[3]) * 8, b1 = (v[1] + v[2]) * 8;
+      const int c1 = (v[1] - v[2]) * 8, d1 = (v[0] - v[3]) * 8;
+      t = pc == 0 ? a1 + b1
+        : pc == 2 ? a1 - b1
+        : pc == 1 ? (c1 * 2217 + d1 * 5352 + 14500) >> 12
+                  : (d1 * 2217 - c1 * 5352 + 7500) >> 12;
+    }
+    // fdct4x4, columns
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      v[k] = __shfl_sync(0xffffffffu, t, base + 4 * k + pc);
+    int co;
+    {
+      const int a1 = v[0] + v[3], b1 = v[1] + v[2];
+      const int c1 = v[1] - v[2], d1 = v[0] - v[3];
+      co = pr == 0 ? (a1 + b1 + 7) >> 4
+         : pr == 2 ? (a1 - b1 + 7) >> 4
+         : pr == 1 ? ((c1 * 2217 + d1 * 5352 + 12000) >> 16) + (d1 != 0)
+                   : (d1 * 2217 - c1 * 5352 + 51000) >> 16;
+    }
+    // quantize (q/2 rounding toward zero) and dequantize coefficient l
+    int lv = div_quant((co < 0 ? -co : co) + q.half, q);
+    lv = co < 0 ? -lv : lv;
+    const int dq = lv * q.q;
+    // idct4x4, columns
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      v[k] = __shfl_sync(0xffffffffu, dq, base + 4 * k + pc);
+    {
+      const int a1 = v[0] + v[2], b1 = v[0] - v[2];
+      const int c1 = ((v[1] * s35) >> 16) - (v[3] + ((v[3] * cm1) >> 16));
+      const int d1 = (v[1] + ((v[1] * cm1) >> 16)) + ((v[3] * s35) >> 16);
+      t = pr == 0 ? a1 + d1 : pr == 1 ? b1 + c1 : pr == 2 ? b1 - c1 : a1 - d1;
+    }
+    // idct4x4, rows
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      v[k] = __shfl_sync(0xffffffffu, t, base + 4 * pr + k);
+    int o;
+    {
+      const int a1 = v[0] + v[2], b1 = v[0] - v[2];
+      const int c1 = ((v[1] * s35) >> 16) - (v[3] + ((v[3] * cm1) >> 16));
+      const int d1 = (v[1] + ((v[1] * cm1) >> 16)) + ((v[3] * s35) >> 16);
+      o = pc == 0 ? a1 + d1 : pc == 1 ? b1 + c1 : pc == 2 ? b1 - c1 : a1 - d1;
+      o = (o + 4) >> 3;
+    }
+    E[(r0 + pr) * 32 + c0 + pc] = (uint8_t)clamp255(o + pp);
+    levels[((size_t)mb * 16 + blk) * 16 + zz] = (int16_t)lv;
+    if (l == 0) modes[(size_t)mb * 16 + blk] = (int8_t)best;
+    __syncwarp();
+  }
+  reinterpret_cast<uint4*>(rec + (size_t)mb * 256)[l] =
+      *reinterpret_cast<const uint4*>(E + l * 32);
 }
 
 }  // namespace
@@ -815,8 +801,10 @@ extern "C" int vp8_trial_luma(const void* y_mb, const void* ftop,
                               void* rec, int mbc, int dc_q, int ac_q,
                               void* stream) {
   if (mbc <= 0) return (int)cudaErrorInvalidValue;
-  trial_luma_kernel<<<(mbc + kTrialThreads - 1) / kTrialThreads,
-                      kTrialThreads, 0, (cudaStream_t)stream>>>(
+  if ((uintptr_t)y_mb % 16 || (uintptr_t)rec % 16)
+    return (int)cudaErrorMisalignedAddress;
+  trial_luma_kernel<<<(mbc + 2 * kTrialWarps - 1) / (2 * kTrialWarps),
+                      kTrialWarps * 32, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)y_mb, (const uint8_t*)ftop, (const uint8_t*)fleft,
       (int16_t*)levels, (int8_t*)modes, (uint8_t*)rec, mbc, dc_q, ac_q);
   return (int)cudaGetLastError();

@@ -11,22 +11,46 @@
 // What bounds both: integer instructions.  An SM has two pipes that take
 // them, 64 lanes each (multiply-adds and dp4a on one; adds, logic, shifts,
 // min/max on the other), and starts at most four warp instructions a
-// clock.  A full-pel candidate costs ~724 integer
-// operations (64 residuals, four separable 4x4 cost transforms, abs and
-// sums) and reads a 12x12 window that every candidate of its block shares;
-// a qpel candidate adds its 8x8 vertical six-tap pass on top of the
-// horizontal passes its block shares.  Bytes are a few hundred per block.
+// clock.  A candidate's cost is four separable 4x4 transforms of an 8x8
+// residual, their abs and sums; its window is shared by every candidate of
+// its block, and a qpel candidate adds its 8x8 vertical six-tap pass on top
+// of the horizontal passes its block shares.  Bytes are a few hundred per
+// block.
 //
-// Both kernels: one warp per (reference, 8x8 block), 8 warps per CTA.  The
-// warp stages the current block and its windows in shared memory with
-// every read clamped into the plane (equal to the JAX package's
-// edge-replicated apron), each lane takes candidates, computes their cost
-// in exact int32 (|C4.X.C4^T|, separable, as csrc/intra.cu), and the warp
-// takes the minimum of (cost, index), so ties go to the earliest candidate
-// as in the plain versions.
+// Both kernels stage the windows in shared memory with every read clamped
+// into the plane (equal to the JAX package's edge-replicated apron),
+// compute costs in exact int32 (|C4.X.C4^T|), and take the minimum of
+// (cost, index), so ties go to the earliest candidate as in the plain
+// versions.
 //
-// Full pel (`fullpel_kernel`): lanes take candidates lane and lane + 32 of
-// the 50 and read residuals byte by byte from the shared windows.
+// Full pel (`fullpel_kernel`): one warp per 8x8 block and all three
+// references (its 150 candidates), 2 warps per CTA; on a level of fewer
+// than kFewBlocks blocks one warp per block and reference, whose chain is
+// a third as long (those levels are one warp's chain and a launch).  The
+// design is about instructions per job:
+//   * the column stage is shared.  The cost is linear up to the abs, so
+//     C4 (R - C) C4^T = C4 R C4^T - C4 C C4^T: the column transform of every
+//     window position a quadrant can start on (9 row starts x 12 columns of
+//     each 12x12 window, 108 where the candidates' quadrants need 400) is
+//     taken once into shared memory as int4, a lane sliding down one window
+//     column, and the current block's two stages once; a candidate's
+//     quadrant is then four 16-byte loads, four row stages that subtract
+//     the current block's inside their adds, abs and sums.  The factors 8
+//     and 2 of C4's rows are taken out of both stages and put back as
+//     weights (`quad_cost_t`).
+//   * lanes.  Candidate c = lane + 32k: with three references 150 of 160
+//     slots work (94%; one reference a warp is 50 of 64).  Each lane keeps
+//     its earliest minimum per reference over its rounds; one
+//     __reduce_min_sync a reference over (cost << 6 | index) ends the
+//     search.
+//   * window rows are read as three words cut from four with funnel shifts
+//     wherever a row lies inside a word-aligned plane, bytes otherwise;
+//     column-stage rows are 13 int4 apart, so the eight lanes of a 16-byte
+//     load's phase mostly hit different bank groups.
+//   Straight-line machine code but for the staging: ~3,500 instructions a
+//   warp of three references, ~1,150 a (reference, block) job, where the
+//   kernel it replaces ran ~2,190 (tools/sass_mix_cuda.py); PERF.md has the
+//   counts and times.
 //
 // Quarter pel (`qpel_kernel`): what it is short of is instruction slots, so
 // the design is about instructions per job (~1,650 where its predecessor,
@@ -63,7 +87,6 @@
 //   the card's two integer pipes (tools/sass_mix_cuda.py).  On an NVIDIA
 //   H100 80GB HBM3 (700 W) the 97,920 jobs of a 1920x1088 frame take 0.20 ms
 //   (the kernel it replaces: 0.98 ms); PERF.md has the measurements.
-#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -112,88 +135,229 @@ __device__ __forceinline__ int quad_cost_res(const int* x) {
   return (4 * s - 3 * dc) >> 9;
 }
 
-// dct_weight of the 4x4 residual a - b (row strides sa, sb).
-__device__ __forceinline__ int quad_cost(const uint8_t* a, int sa,
-                                         const uint8_t* b, int sb) {
-  int x[16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int l = 0; l < 4; ++l) x[i * 4 + l] = a[i * sa + l] - b[i * sb + l];
-  return quad_cost_res(x);
+// Full pel: the cost of a candidate, C4 (R - C) C4^T per quadrant, is
+// linear up to the abs, so C4 R C4^T - C4 C C4^T.  Every row of C4 is a
+// multiple of (1 1 1 1), (5 2 -2 -5), (1 -1 -1 1) or (2 -5 5 -2) by 8, 2, 8
+// or 2; the stages below drop those factors and `quad_cost_t` puts them
+// back as weights 64, 16, 4 on the three classes of coefficient, and the
+// >> 9 of dct_weight as >> 5 (everything it shifts is a multiple of 16).
+
+// Four values through the four rows of C4 without their factors:
+// (a, e, b, f) = ((1 1 1 1), (5 2 -2 -5), (1 -1 -1 1), (2 -5 5 -2)) . x.
+__device__ __forceinline__ int4 c4_stage(int x0, int x1, int x2, int x3) {
+  const int s03 = x0 + x3, d03 = x0 - x3, s12 = x1 + x2, d12 = x1 - x2;
+  return make_int4(s03 + s12, 5 * d03 + 2 * d12, s03 - s12,
+                   2 * d03 - 5 * d12);
 }
 
-// dct_cost_8x8: the four quadrants' costs, each shifted before the sum.
-__device__ __forceinline__ int cost8x8(const uint8_t* a, int sa,
-                                       const uint8_t* b, int sb) {
-  return quad_cost(a, sa, b, sb) + quad_cost(a + 4, sa, b + 4, sb) +
-         quad_cost(a + 4 * sa, sa, b + 4 * sb, sb) +
-         quad_cost(a + 4 * sa + 4, sa, b + 4 * sb + 4, sb);
+// Row i of a candidate's quadrant: component i of the column stage of its
+// four window columns through the stage again, less g.
+__device__ __forceinline__ int4 row_less(int u0, int u1, int u2, int u3,
+                                         int4 g) {
+  const int s03 = u0 + u3, d03 = u0 - u3, s12 = u1 + u2, d12 = u1 - u2;
+  return make_int4(s03 + s12 - g.x, 5 * d03 + 2 * d12 - g.y,
+                   s03 - s12 - g.z, 2 * d03 - 5 * d12 - g.w);
 }
 
-// Lexicographic (cost, index) minimum over the warp; every lane gets it.
-__device__ __forceinline__ void warp_min(int& cost, int& idx) {
+// dct_weight of one quadrant of a candidate: t[0..3] the column stage of
+// its four window columns (components a, e, b, f), g[0..3] the current
+// quadrant's two stages by row.  Coefficient (i, j) carries the factors of
+// rows i and j of C4: 64 where both are even, 16 where one is, else 4.
+__device__ __forceinline__ int quad_cost_t(const int4* t, const int4* g) {
+  const int4 c0 = t[0], c1 = t[1], c2 = t[2], c3 = t[3];
+  const int4 r0 = row_less(c0.x, c1.x, c2.x, c3.x, g[0]);
+  const int4 r1 = row_less(c0.y, c1.y, c2.y, c3.y, g[1]);
+  const int4 r2 = row_less(c0.z, c1.z, c2.z, c3.z, g[2]);
+  const int4 r3 = row_less(c0.w, c1.w, c2.w, c3.w, g[3]);
+  const int dc = abs(r0.x);
+  const int s64 = dc + abs(r0.z) + abs(r2.x) + abs(r2.z);
+  const int s16 = abs(r0.y) + abs(r0.w) + abs(r2.y) + abs(r2.w) +
+                  abs(r1.x) + abs(r1.z) + abs(r3.x) + abs(r3.z);
+  const int s4 = abs(r1.y) + abs(r1.w) + abs(r3.y) + abs(r3.w);
+  return (16 * s64 + 4 * s16 + s4 - 12 * dc) >> 5;
+}
+
+constexpr int kFpWarps = 2;          // warps per CTA (25 KB of shared memory)
+// Below this many blocks a level takes one reference a warp (three times
+// the warps, each a third as long): levels of 120 and 510 blocks ran 43%
+// and 28% faster so, levels of 2040 blocks and more 4-6% slower (NVIDIA
+// H100, PERF.md).
+constexpr int kFewBlocks = 1024;
+constexpr int kColPitch = 13;        // int4 between column-stage rows
+constexpr int kColWin = 9 * kColPitch;
+constexpr unsigned kNoKey = 0xffffffffu;
+
+// a[k] without indexing registers by a runtime value
+template <int N>
+__device__ __forceinline__ int pick(const int (&a)[N], int k) {
+  int v = a[0];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    int oc = __shfl_xor_sync(0xffffffffu, cost, off);
-    int oi = __shfl_xor_sync(0xffffffffu, idx, off);
-    if (oc < cost || (oc == cost && oi < idx)) {
-      cost = oc;
-      idx = oi;
-    }
-  }
+  for (int i = 1; i < N; ++i) v = k == i ? a[i] : v;
+  return v;
 }
 
 // cur (H, W) u8, refs (R, H, W) u8, v0 (R, n, 2) i32 -> out (R, n, 2) i32
-// offsets (x, y) of the winning candidate from the block.
-__global__ void __launch_bounds__(kWarps * 32)
+// offsets (x, y) of the winning candidate from the block.  A warp takes a
+// block and REFS references (3, or 1 on a level of few blocks).  `words`:
+// W is a multiple of 4 and the planes are word-aligned.
+template <int REFS>
+__global__ void __launch_bounds__(kFpWarps * 32)
     fullpel_kernel(const uint8_t* __restrict__ cur,
                    const uint8_t* __restrict__ refs,
                    const int* __restrict__ v0, int* __restrict__ out, int R,
-                   int W, int H, int penalty) {
-  __shared__ uint8_t s_cur[kWarps][64];
-  __shared__ uint8_t s_win[kWarps][2][144];
+                   int W, int H, int penalty, int words) {
+  __shared__ uint32_t s_px[kFpWarps][2 * REFS * 12 * 3];  // 12 x 12 bytes
+  __shared__ int4 s_col[kFpWarps][2 * REFS * kColWin];
+  __shared__ int4 s_cur[kFpWarps][16];  // column stage (qr, x): qr * 8 + x
+  __shared__ int4 s_g[kFpWarps][16];    // both stages (quadrant, i): q * 4 + i
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nbx = W >> 3, n = nbx * (H >> 3);
-  const int job = blockIdx.x * kWarps + warp;
-  if (job >= R * n) return;            // whole warps only: no CTA barrier
-  const int b = job % n;
-  const uint8_t* ref = refs + (size_t)(job / n) * W * H;
+  const int job = blockIdx.x * kFpWarps + warp;
+  if (job >= n * ((R + REFS - 1) / REFS)) return;   // whole warps
+  const int b = job % n, r0 = (job / n) * REFS;
   const int cx = (b % nbx) * 8, cy = (b / nbx) * 8;
-  const int vx = v0[2 * job], vy = v0[2 * job + 1];
+  // the warp's references; one past R repeats the last and stores nothing
+  int ref[REFS], vx[REFS], vy[REFS];
+#pragma unroll
+  for (int k = 0; k < REFS; ++k) {
+    ref[k] = min(r0 + k, R - 1);
+    vx[k] = v0[2 * (ref[k] * n + b)];
+    vy[k] = v0[2 * (ref[k] * n + b) + 1];
+  }
 
-  for (int i = lane; i < 64; i += 32)
-    s_cur[warp][i] = cur[(cy + (i >> 3)) * W + cx + (i & 7)];
-  for (int i = lane; i < 288; i += 32) {
-    const int w = i / 144, k = i % 144;       // window 1 at v0, window 0 at 0
-    const int yy = clampi(cy + (w == 0 ? vy : 0) - 2 + k / 12, 0, H - 1);
-    const int xx = clampi(cx + (w == 0 ? vx : 0) - 2 + k % 12, 0, W - 1);
-    s_win[warp][w][k] = ref[yy * W + xx];
+  // Stage: window 2k (around reference k's v0) and 2k + 1 (around zero),
+  // 12 rows of 12 bytes from (-2, -2), every read clamped into the plane;
+  // a row that lies inside the plane is three words cut from four.
+#pragma unroll
+  for (int it = 0; it < 3; ++it) {
+    const int item = lane + 32 * it;
+    if (item < 2 * REFS * 12) {
+      const int win = item / 12, row = item % 12, k = win >> 1;
+      const bool at_v = (win & 1) == 0;
+      const int ox = cx - 2 + (at_v ? pick(vx, k) : 0);
+      const int oy =
+          clampi(cy - 2 + row + (at_v ? pick(vy, k) : 0), 0, H - 1);
+      const uint8_t* p =
+          refs + (size_t)pick(ref, k) * W * H + (size_t)oy * W;
+      uint32_t o[3];
+      if (words && ox >= 0 && ox + 12 <= W) {
+        const int x0 = ox & ~3, sh = 8 * (ox & 3);
+        const uint32_t* q = reinterpret_cast<const uint32_t*>(p + x0);
+        const uint32_t q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2);
+        const uint32_t q3 = x0 + 12 < W ? __ldg(q + 3) : 0u;
+        o[0] = __funnelshift_r(q0, q1, sh);
+        o[1] = __funnelshift_r(q1, q2, sh);
+        o[2] = __funnelshift_r(q2, q3, sh);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          uint32_t w = 0;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            w |= (uint32_t)p[clampi(ox + 4 * j + c, 0, W - 1)] << (8 * c);
+          o[j] = w;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j) s_px[warp][item * 3 + j] = o[j];
+    }
+  }
+  if (lane < 16) {           // the current block's column stage
+    const uint8_t* p =
+        cur + (size_t)(cy + 4 * (lane >> 3)) * W + cx + (lane & 7);
+    s_cur[warp][lane] = c4_stage(p[0], p[W], p[2 * W], p[3 * W]);
+  }
+  __syncwarp();
+  if (lane < 16) {           // ... and its row stage: quadrant q, row i
+    const int q = lane >> 2, i = lane & 3;
+    const int4* c = &s_cur[warp][(q >> 1) * 8 + (q & 1) * 4];
+    int u[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int4 v = c[j];
+      u[j] = i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+    }
+    s_g[warp][lane] = c4_stage(u[0], u[1], u[2], u[3]);
+  }
+  // The windows' column stage: rows r..r+3 of column x for r = 0..8 (every
+  // quadrant of every candidate starts on one of them), x = 0..11; a lane
+  // takes one window column and slides down its 12 pixels.
+#pragma unroll
+  for (int it = 0; it < (2 * REFS * 12 + 31) / 32; ++it) {
+    const int item = lane + 32 * it;
+    if (item < 2 * REFS * 12) {
+      const int win = item / 12, x = item % 12;
+      const uint8_t* p =
+          reinterpret_cast<const uint8_t*>(s_px[warp]) + win * 144 + x;
+      int v[12];
+#pragma unroll
+      for (int r = 0; r < 12; ++r) v[r] = p[12 * r];
+      int4* o = &s_col[warp][win * kColWin + x];
+#pragma unroll
+      for (int r = 0; r < 9; ++r)
+        o[r * kColPitch] = c4_stage(v[r], v[r + 1], v[r + 2], v[r + 3]);
+    }
   }
   __syncwarp();
 
-  int best = INT_MAX, best_idx = 64;
-  for (int c = lane; c < 50; c += 32) {       // increasing: strict < keeps
-    const int w = c / 25, d = c % 25;         // the earliest of the lane's
+  // Candidates: c = lane + 32k of the warp's 50 * REFS (reference c / 50,
+  // window 1 at v0 and window 0 at zero, 25 each, dy-major).  Per candidate
+  // the offset of its top-left column-stage entry and what its cost gets
+  // added: the penalty, or -1 for a block that leaves the plane.
+  constexpr int kRounds = (REFS * 50 + 31) / 32;
+  int at[kRounds], add[kRounds], cost[kRounds];
+#pragma unroll
+  for (int k = 0; k < kRounds; ++k) {
+    const int c = min(lane + 32 * k, REFS * 50 - 1);
+    const int rk = c / 50, w = (c % 50) / 25, d = c % 25;
     const int dx = d % 5 - 2, dy = d / 5 - 2;
-    const int px = cx + (w == 0 ? vx : 0) + dx;
-    const int py = cy + (w == 0 ? vy : 0) + dy;
-    int cost = kBig;
-    if (px >= 0 && px <= W - 8 && py >= 0 && py <= H - 8) {
-      cost = cost8x8(&s_win[warp][w][(dy + 2) * 12 + dx + 2], 12,
-                     s_cur[warp], 8);
-      if (penalty) cost += (abs(px - cx - vx) + abs(py - cy - vy)) * kPen;
-    }
-    if (cost < best) {
-      best = cost;
-      best_idx = c;
-    }
+    const int vxr = pick(vx, rk), vyr = pick(vy, rk);
+    const int wx = w == 0 ? vxr : 0, wy = w == 0 ? vyr : 0;
+    const int px = cx + wx + dx, py = cy + wy + dy;
+    at[k] = (2 * rk + w) * kColWin + (dy + 2) * kColPitch + dx + 2;
+    add[k] = (px >= 0 && px <= W - 8 && py >= 0 && py <= H - 8)
+                 ? (penalty ? (abs(wx + dx - vxr) + abs(wy + dy - vyr)) * kPen
+                            : 0)
+                 : -1;
+    cost[k] = 0;
   }
-  warp_min(best, best_idx);
-  if (lane == 0) {
-    const int w = best_idx / 25, d = best_idx % 25;
-    out[2 * job] = (w == 0 ? vx : 0) + d % 5 - 2;
-    out[2 * job + 1] = (w == 0 ? vy : 0) + d / 5 - 2;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int4 g[4] = {s_g[warp][4 * q], s_g[warp][4 * q + 1],
+                       s_g[warp][4 * q + 2], s_g[warp][4 * q + 3]};
+    const int qo = (q >> 1) * 4 * kColPitch + (q & 1) * 4;
+#pragma unroll
+    for (int k = 0; k < kRounds; ++k)
+      cost[k] += quad_cost_t(&s_col[warp][at[k] + qo], g);
+  }
+
+  // The earliest minimum per reference over keys (cost << 6 | index in the
+  // reference), a block outside the plane as the largest cost field: exact
+  // while cost + penalty stays below 2^26 - 2 (|v0| below 2^20 pels).
+  unsigned best[REFS];
+#pragma unroll
+  for (int r = 0; r < REFS; ++r) best[r] = kNoKey;
+#pragma unroll
+  for (int k = 0; k < kRounds; ++k) {
+    const int c = lane + 32 * k, rk = c / 50;
+    const unsigned field =
+        add[k] < 0 ? (1u << 26) - 1
+                   : min((unsigned)(cost[k] + add[k]), (1u << 26) - 2);
+    const unsigned key =
+        c < REFS * 50 ? field << 6 | (unsigned)(c % 50) : kNoKey;
+#pragma unroll
+    for (int r = 0; r < REFS; ++r)
+      if (rk == r) best[r] = min(best[r], key);
+  }
+#pragma unroll
+  for (int r = 0; r < REFS; ++r) {
+    const unsigned m = __reduce_min_sync(0xffffffffu, best[r]);
+    if (lane == r && r0 + r < R) {
+      const int idx = m & 63, w = idx / 25, d = idx % 25;
+      const int o = 2 * (ref[r] * n + b);
+      out[o] = (w == 0 ? vx[r] : 0) + d % 5 - 2;
+      out[o + 1] = (w == 0 ? vy[r] : 0) + d / 5 - 2;
+    }
   }
 }
 
@@ -414,10 +578,19 @@ int grid_for(int jobs) { return (jobs + kWarps - 1) / kWarps; }
 extern "C" int vp8_fullpel_search(const void* cur, const void* refs,
                                   const void* v0, void* out, int R, int W,
                                   int H, int penalty, void* stream) {
-  const int jobs = R * (W / 8) * (H / 8);
-  fullpel_kernel<<<grid_for(jobs), kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)cur, (const uint8_t*)refs, (const int*)v0, (int*)out, R,
-      W, H, penalty);
+  const int n = (W / 8) * (H / 8);
+  // word loads where every row of every plane starts on a word
+  const int words = W % 4 == 0 && (uintptr_t)refs % 4 == 0;
+  if (n < kFewBlocks)
+    fullpel_kernel<1><<<(R * n + kFpWarps - 1) / kFpWarps, kFpWarps * 32, 0,
+                        (cudaStream_t)stream>>>(
+        (const uint8_t*)cur, (const uint8_t*)refs, (const int*)v0,
+        (int*)out, R, W, H, penalty, words);
+  else
+    fullpel_kernel<3><<<((R + 2) / 3 * n + kFpWarps - 1) / kFpWarps,
+                        kFpWarps * 32, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)cur, (const uint8_t*)refs, (const int*)v0,
+        (int*)out, R, W, H, penalty, words);
   return (int)cudaGetLastError();
 }
 

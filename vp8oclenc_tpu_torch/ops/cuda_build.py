@@ -74,10 +74,14 @@ def _stale(name: str) -> bool:
 
 
 def _start(name: str, tmpdir: str):
+    """nvcc of csrc/<name>.cu, or of the .cu file at the path `name`, into
+    tmpdir/<name>.so, started."""
+    src = name if name.endswith(".cu") else os.path.join(SRC_DIR,
+                                                         name + ".cu")
+    base = os.path.splitext(os.path.basename(src))[0]
     cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", os.path.join(tmpdir, name + ".so"),
-           os.path.join(SRC_DIR, name + ".cu")]
+           "-I", SRC_DIR, "-o", os.path.join(tmpdir, base + ".so"), src]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 

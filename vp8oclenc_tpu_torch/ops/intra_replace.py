@@ -112,6 +112,62 @@ def _frozen_chroma_neighbors(recon_c: torch.Tensor, mbw: int, mbh: int):
             ctl.reshape(-1))
 
 
+def trial_state(y_mb: torch.Tensor, ftop: torch.Tensor,
+                fleft: torch.Tensor):
+    """The working state of a luma trial, filled by `trial_step`.
+
+    "edge" (mbc, 17, 21) int32 holds, per MB, every pixel a block may
+    predict from at [1 + row, 1 + col]: the frozen row above the MB (row
+    -1: P, A0..A19), the frozen column left of it (col -1), the MB's own
+    trial reconstruction (rows and cols 0..15, zeros until coded), and
+    ftop[17:21] again at cols 16..19 of rows 3, 7 and 11, where block
+    column 3 of block rows 1..3 finds its above-right pixels.  Every block
+    then reads the same way (A = row r0-1, cols c0..c0+7; L = col c0-1,
+    rows r0..r0+3; P = (r0-1, c0-1))."""
+    mbc = y_mb.shape[0]
+    edge = torch.zeros((mbc, 17, 21), dtype=_I32, device=y_mb.device)
+    edge[:, 0] = ftop.to(_I32)
+    edge[:, 1:, 0] = fleft.to(_I32)
+    edge[:, 4::4, 17:] = ftop[:, None, 17:].to(_I32)
+    return {"src": y_mb.to(_I32), "edge": edge,
+            "levels": torch.zeros((mbc, 16, 16), dtype=_I32,
+                                  device=y_mb.device),
+            "modes": torch.zeros((mbc, 16), dtype=_I32, device=y_mb.device)}
+
+
+def trial_step(st, mb: torch.Tensor, blk: torch.Tensor, dc_q: int,
+               ac_q: int) -> None:
+    """Code block `blk` (in-MB raster index) of MB `mb` (index tensors of
+    one length) in the state `st`.  A block's left, above, above-left and,
+    for block columns 0..2, above-right neighbours inside the MB must be
+    coded; every read of a call happens before its writes, so the blocks of
+    one call must not depend on each other."""
+    edge = st["edge"]
+    r0, c0 = (blk // 4) * 4, (blk % 4) * 4
+    k = torch.arange(8, device=edge.device)
+    A = edge[mb[:, None], r0[:, None], c0[:, None] + 1 + k]      # (K, 8)
+    L = edge[mb[:, None], r0[:, None] + 1 + k[:4], c0[:, None]]  # (K, 4)
+    P = edge[mb, r0, c0]
+    rows = r0[:, None] + k[:4]
+    cols = c0[:, None] + k[:4]
+    src = st["src"][mb[:, None, None], rows[:, :, None], cols[:, None, :]]
+    preds = bpred_all_modes(A, L, P)                         # (K, 10, 4, 4)
+    mode = _first_min(T.dct_weight(src[:, None] - preds))
+    pred = preds[torch.arange(len(mb), device=edge.device), mode]
+    lev = T.quant4x4(T.fdct4x4(src - pred), dc_q, ac_q)
+    edge[mb[:, None, None], 1 + rows[:, :, None], 1 + cols[:, None, :]] = \
+        torch.clamp(T.idct4x4(T.dequant4x4(lev, dc_q, ac_q)) + pred, 0, 255)
+    st["levels"][mb, blk] = T.zigzag(lev)
+    st["modes"][mb, blk] = mode
+
+
+def trial_result(st):
+    """(levels i16, modes i8, rec u8) of a finished state, in the layout
+    of `trial_luma_plain`."""
+    return (st["levels"].to(torch.int16), st["modes"].to(torch.int8),
+            st["edge"][:, 1:, 1:17].to(_U8))
+
+
 def trial_luma_plain(y_mb: torch.Tensor, ftop: torch.Tensor,
                      fleft: torch.Tensor, dc_q: int, ac_q: int):
     """One whole-frame batched B_PRED trial at fixed quantizers.
@@ -125,38 +181,11 @@ def trial_luma_plain(y_mb: torch.Tensor, ftop: torch.Tensor,
     least cost wins.  Returns (levels (mbc, 16, 16) i16 zigzag, modes
     (mbc, 16) i8, rec (mbc, 16, 16) u8)."""
     mbc = y_mb.shape[0]
-    dev = y_mb.device
-    y_mb, ftop, fleft = y_mb.to(_I32), ftop.to(_I32), fleft.to(_I32)
-    rec = torch.zeros((mbc, 16, 16), dtype=_I32, device=dev)
-    levels = torch.zeros((mbc, 16, 16), dtype=_I32, device=dev)
-    modes = torch.zeros((mbc, 16), dtype=_I32, device=dev)
-    for br in range(4):
-        for bc in range(4):
-            r0, c0 = br * 4, bc * 4
-            if br == 0:
-                A = ftop[:, 1 + c0:9 + c0]
-            else:
-                a47 = rec[:, r0 - 1, c0 + 4:c0 + 8] if bc < 3 \
-                    else ftop[:, 17:21]
-                A = torch.cat([rec[:, r0 - 1, c0:c0 + 4], a47], dim=1)
-            L = fleft[:, r0:r0 + 4] if bc == 0 else rec[:, r0:r0 + 4, c0 - 1]
-            if br == 0:
-                P = ftop[:, c0]
-            elif bc == 0:
-                P = fleft[:, r0 - 1]
-            else:
-                P = rec[:, r0 - 1, c0 - 1]
-            src = y_mb[:, r0:r0 + 4, c0:c0 + 4]
-            preds = bpred_all_modes(A, L, P)                 # (mbc, 10, 4, 4)
-            mode = _first_min(T.dct_weight(src[:, None] - preds))
-            pred = preds.gather(
-                1, mode[:, None, None, None].expand(-1, 1, 4, 4))[:, 0]
-            lev = T.quant4x4(T.fdct4x4(src - pred), dc_q, ac_q)
-            rec[:, r0:r0 + 4, c0:c0 + 4] = torch.clamp(
-                T.idct4x4(T.dequant4x4(lev, dc_q, ac_q)) + pred, 0, 255)
-            levels[:, br * 4 + bc] = T.zigzag(lev)
-            modes[:, br * 4 + bc] = mode
-    return levels.to(torch.int16), modes.to(torch.int8), rec.to(_U8)
+    st = trial_state(y_mb, ftop, fleft)
+    mb = torch.arange(mbc, device=y_mb.device)
+    for b in range(16):
+        trial_step(st, mb, torch.full_like(mb, b), dc_q, ac_q)
+    return trial_result(st)
 
 
 def trial_luma(y_mb: torch.Tensor, ftop: torch.Tensor, fleft: torch.Tensor,
