@@ -58,8 +58,28 @@ Phases (any failure exits non-zero before the result line):
      ssim_target=0.985 through encode_frames at depth 3, so frames 3 and 4
      are in flight when frame 2's verdict arrives: at least one redo, the
      frame comes out as a key, every frame's bytes identical to the CPU's;
-  8. a `kernels` JSON line, the nvidia-smi line, and as the last line
-     {"ok": true, "device": {...}}.
+  8. the search kernels in row-shard mode (a reference strip, the shard's
+     first row, the frame's height) against their plain versions on strips
+     of 1080p pyramid levels 1 and 0: 2 and 4 shards, the top, an interior
+     and the bottom one, vectors to the halo's edge; timed on a 2-tile
+     shard (1920x544 and 80 halo rows each side);
+  9. the loop filter in band mode: 2 and 4 bands of a 1080p frame handed
+     down with their 4 halo lines in and 3 lines back, equal to the
+     whole-plane kernel, each launch equal to its plain version; timed on
+     a 1920x544 band;
+  10. the multi-GPU layer (parallel/) on the one card, ranks over gloo
+     (NCCL refuses two ranks on one device): 10 frames of the panned
+     canvas at gop_size=5 over 4 ranks (2 gop lanes x 2 row tiles), and 5
+     frames of the SSIM-target replacement content over 2 ranks (1 lane x
+     2 tiles), each byte-identical to the single-rank encode of the same
+     frames on the card; the ranks' launch counters (zero at their start,
+     summed over them) must show every kernel of the path, the searches
+     and the filter in their shard and band modes; fps is logged as that
+     of ranks sharing one card, not a scaling figure;
+  11. a `kernels` JSON line (each kernel with its launches on the
+     multi-rank path and, for the three with one, its shard or band
+     mode's time, bound and launches), the nvidia-smi line, and as the
+     last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -98,6 +118,7 @@ SSIM_CFG = dict(qi_min=50, qi_max=112, gop_size=150, ssim_target=0.98)
 SSIM_REGIONS = 200            # of 32x32: 800 MBs of 8160, under a sixth
 REDO_CFG = dict(qi_min=95, qi_max=127, gop_size=150, ssim_target=0.985)
 N_REDO_FRAMES, REDO_AT = 5, 2
+N_MULTI_FRAMES, N_MULTI_SSIM_FRAMES = 10, 5   # multi-rank encodes
 
 # integer operations per unit of work, counted from the kernels' arithmetic
 # (each add, multiply, shift, compare, select, abs, clamp and store counts
@@ -497,11 +518,13 @@ def phase_row_shapes(dev):
             f"chroma_wavefront bit-exact over {REPEATS} launches")
 
 
-def _fullpel_counts(v0, Hl, Wl):
+def _fullpel_counts(v0, Hl, Wl, row0=0, full_h=0):
     """(valid, invalid) candidate counts of one full-pel launch: the
-    work its data needs (invalid candidates are only bounds-checked)."""
+    work its data needs (invalid candidates are only bounds-checked).
+    A row shard's candidates are bounded by the frame's rows."""
     from vp8oclenc_tpu_torch.ops.inter import _block_origins
     cy, cx = _block_origins(Hl // 8, Wl // 8, v0.device)
+    cy, Hl = cy + row0, full_h or Hl
     d = torch.arange(-2, 3, device=v0.device)
     valid = 0
     for wx, wy in ((v0[..., 0], v0[..., 1]), (0 * v0[..., 0], 0 * v0[..., 1])):
@@ -513,11 +536,13 @@ def _fullpel_counts(v0, Hl, Wl):
     return valid, v0.shape[0] * v0.shape[1] * 50 - valid
 
 
-def _qpel_valid(fv, Hl, Wl):
+def _qpel_valid(fv, Hl, Wl, row0=0, full_h=0):
     """(in-frame qpel candidates of 25 per job, those of them with dy = 0,
-    whose vertical pass is a copy) of one launch."""
+    whose vertical pass is a copy) of one launch; row0, full_h as in
+    `_fullpel_counts`."""
     from vp8oclenc_tpu_torch.ops.inter import _block_origins
     cy, cx = _block_origins(Hl // 8, Wl // 8, fv.device)
+    cy, Hl = cy + row0, full_h or Hl
     d = torch.arange(-2, 3, device=fv.device)
     px = ((cx + fv[..., 0]) * 4)[..., None] + d
     py = ((cy + fv[..., 1]) * 4)[..., None] + d
@@ -1108,6 +1133,272 @@ def phase_redo(dev):
     if cpu_stats != st:
         raise AssertionError(f"counters differ: card {st}, CPU {cpu_stats}")
 
+def _strip(plane, row0, rows, pad):
+    """Rows row0 - pad .. row0 + rows + pad - 1 of (..., H, W) planes,
+    clamped into them: a row shard's reference strip."""
+    idx = torch.arange(row0 - pad, row0 + rows + pad,
+                       device=plane.device).clamp(0, plane.shape[-2] - 1)
+    return plane[..., idx, :].contiguous()
+
+
+def phase_shard_search(dev):
+    """Both search kernels in row-shard mode (a strip of the reference,
+    the shard's first row row0, the frame's height full_h) against their
+    plain versions on strips of real 1920x1088 pyramid levels 1 and 0,
+    bit-exact: 2 and 4 shards, the top, an interior and the bottom one,
+    from random vectors reaching to the halo's edge (62 pels at level 0,
+    31 at level 1, past the frame at its edges).  Times and bounds: the
+    top shard of a 2-tile 1080p frame (1920x544 own rows, 80 halo rows
+    each side), searched from the vectors the whole-frame levels 4..2
+    give, as a tile rank does: full pel at levels 1 and 0 summed, and
+    quarter pel."""
+    from vp8oclenc_tpu_torch.io.y4m import pad_frame
+    from vp8oclenc_tpu_torch.ops import inter as IN
+
+    frames = synth_moving(4, seed=3)
+    planes = [torch.from_numpy(pad_frame(f).y).to(dev) for f in frames]
+    cur = IN.build_pyramid(planes[3])
+    refs = [torch.stack(lv).contiguous() for lv in
+            zip(*(IN.build_pyramid(p) for p in planes[:3]))]
+    rng = np.random.default_rng(11)
+    n_cases = 0
+    for T in (2, 4):
+        for t in sorted({0, 1, T - 1}):
+            for lvl in (1, 0):
+                hl, wl = cur[lvl].shape
+                rows, pad = hl // T, IN.PAD_Y_FULL >> lvl
+                row0 = t * rows
+                strip = _strip(refs[lvl], row0, rows, pad)
+                c = cur[lvl][row0:row0 + rows].contiguous()
+                n = (rows // 8) * (wl // 8)
+                reach = 62 >> lvl
+                v = rng.integers(-reach, reach + 1, (3, n, 2))
+                v[:, 0], v[:, -1] = -reach, reach
+                v0 = torch.as_tensor(v, dtype=torch.int32, device=dev)
+                args = (pad, row0, hl)
+                cases = [("fullpel_search",
+                          [IN.fullpel_search(c, strip, v0, True, *args)],
+                          [IN.fullpel_search_plain(c, strip, v0, True,
+                                                   *args)])]
+                if lvl == 0:
+                    fv = torch.as_tensor(v.clip(-60, 60), dtype=torch.int32,
+                                         device=dev)
+                    cases.append(("qpel_search",
+                                  IN.qpel_search(c, strip, fv, *args),
+                                  IN.qpel_search_plain(c, strip, fv,
+                                                       *args)))
+                for name, k, p in cases:
+                    err = max_abs_err(k, p)
+                    if err != 0:
+                        raise AssertionError(
+                            f"{name} shard {t} of {T}, level {lvl}: kernel "
+                            f"differs from its plain version by {err}")
+                    n_cases += 1
+    log(f"  {n_cases} shard cases (2 and 4 shards; top, interior, bottom; "
+        f"levels 1 and 0; vectors to the halo's edge): bit-exact")
+
+    # a 2-tile rank's search: whole-frame levels 4..2, then its shard
+    T, t = 2, 0
+    vec = None
+    for lvl, rate in ((4, 16), (3, 8), (2, 4)):
+        vec = IN.search_level(cur[lvl], refs[lvl], vec, rate, rate < 4)
+    rows_out = {}
+    fp = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "err": 0}
+    for lvl, rate in ((1, 2), (0, 1)):
+        hl, wl = cur[lvl].shape
+        rows, pad = hl // T, IN.PAD_Y_FULL >> lvl
+        row0 = t * rows
+        strip = _strip(refs[lvl], row0, rows, pad)
+        c = cur[lvl][row0:row0 + rows].contiguous()
+        v0 = IN.inherit_vectors(vec, 3, rows // 8, wl // 8, rate, dev, row0)
+        args = (pad, row0, hl)
+        k = IN.fullpel_search(c, strip, v0, True, *args)
+        fp["err"] = max(fp["err"], max_abs_err(
+            [k], [IN.fullpel_search_plain(c, strip, v0, True, *args)]))
+        fp["ms"] += cuda_ms(lambda: IN.fullpel_search(c, strip, v0, True,
+                                                      *args), reps=10)
+        fp["plain_ms"] += span_ms(lambda: IN.fullpel_search_plain(
+            c, strip, v0, True, *args))
+        valid, invalid = _fullpel_counts(v0, rows, wl, row0, hl)
+        fp["bytes"] += c.numel() + strip.numel() + 2 * v0.numel() * 4
+        fp["ops"] += valid * OPS_CAND_STAGED + invalid * OPS_INVALID \
+            + v0.shape[0] * v0.shape[1] * 2 * OPS_WINDOW_COLUMNS \
+            + v0.shape[1] * 32 * OPS_C4
+        vec = (k * rate).reshape(3, rows // 8, wl // 8, 2)
+    bms, by = bound(fp["bytes"], fp["ops"])
+    shape = f"{W}x{rows} rows of {hl}, {IN.PAD_Y_FULL} halo rows each side"
+    log(f"  fullpel_search, a 2-tile shard ({shape}), levels 1 and 0: "
+        f"bit-exact, kernel {fp['ms']:.4f} ms, plain {fp['plain_ms']:.1f} "
+        f"ms, bound {bms:.5f} ms ({by})")
+    rows_out["fullpel_search"] = {
+        "shape": shape + "; levels 1 and 0", "max_abs_err": fp["err"],
+        "ms": fp["ms"], "plain_ms": fp["plain_ms"], "bound_ms": bms,
+        "bound_by": by}
+    fv = vec.reshape(3, -1, 2).contiguous()
+    args = (IN.PAD_Y_FULL, row0, hl)
+    k = IN.qpel_search(c, strip, fv, *args)
+    err = max_abs_err(k, IN.qpel_search_plain(c, strip, fv, *args))
+    ms = cuda_ms(lambda: IN.qpel_search(c, strip, fv, *args), reps=10)
+    pms = span_ms(lambda: IN.qpel_search_plain(c, strip, fv, *args))
+    jobs = fv.shape[0] * fv.shape[1]
+    valid, copied = _qpel_valid(fv, rows, wl, row0, hl)
+    filtered = jobs * QPEL_HPASS_FILTERED + (valid - copied) * 64
+    nbytes = c.numel() + strip.numel() + fv.numel() * 4 + jobs * (8 + 4 + 64)
+    ops = jobs * (QPEL_HPASS_COPIED + OPS_COST8 + 64) + valid * OPS_COST8 \
+        + copied * 64 + filtered * OPS_SIXTAP_INT \
+        + (jobs * 25 - valid) * OPS_INVALID
+    bms, by = bound(nbytes, ops, filtered * OPS_SIXTAP_MAC8)
+    log(f"  qpel_search, a 2-tile shard ({shape}, {jobs} jobs): max error "
+        f"{err}, kernel {ms:.4f} ms, plain {pms:.1f} ms, bound {bms:.5f} ms "
+        f"({by})")
+    rows_out["qpel_search"] = {
+        "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+        "bound_ms": bms, "bound_by": by}
+    if fp["err"] or err:
+        raise AssertionError("a shard search differs from its plain version")
+    return rows_out
+
+
+def phase_band_filter(dev):
+    """The loop-filter kernel in band mode: 1920x1088 planes cut into 2
+    and 4 bands, filtered one after the other with the 4 lines above each
+    band handed in and the 3 it changes handed back (the tile ranks'
+    order), must equal the whole-plane kernel, and every band launch its
+    plain version (planes and write-back lines); four segments with their
+    own limits, a mixed inner-edge mask.  Time and bound: the lower band
+    of 2 (1920x544 and its halo)."""
+    from vp8oclenc_tpu_torch.config import EncoderConfig
+    from vp8oclenc_tpu_torch.io.y4m import pad_frame
+    from vp8oclenc_tpu_torch.ops import loopfilter as LF
+    from vp8oclenc_tpu_torch.pipeline.segments import prepare_segments
+
+    f = pad_frame(synth_moving(1, seed=9)[0])
+    planes = [torch.from_numpy(p).to(dev) for p in (f.y, f.u, f.v)]
+    Hp, Wp = f.y.shape
+    mbc = (Hp // 16) * (Wp // 16)
+    seg = prepare_segments(EncoderConfig(qi_min=30, qi_max=90), f.y, False,
+                           False)
+    lf = [torch.as_tensor(np.asarray(a, np.int32), device=dev) for a in
+          (seg.loop_filter_level, seg.mbedge_limit, seg.sub_bedge_limit,
+           seg.interior_limit, seg.hev_threshold)]
+    rng = np.random.default_rng(5)
+    sid = torch.as_tensor(rng.integers(0, 4, mbc), dtype=torch.int32,
+                          device=dev)
+    inner = torch.as_tensor(rng.random(mbc) < 0.5, device=dev)
+    whole = LF.filter_planes(*planes, sid, inner, *lf)
+    row = {}
+    for T in (2, 4):
+        n = mbc // T
+        bands, halo, err = [], None, 0
+        for t in range(T):
+            cut = [p[t * (p.shape[0] // T):(t + 1) * (p.shape[0] // T)]
+                   .contiguous() for p in planes]
+            args = (*cut, halo, sid[t * n:(t + 1) * n].contiguous(),
+                    inner[t * n:(t + 1) * n].contiguous(), *lf)
+            out, wb = LF.filter_band(*args)
+            pout, pwb = LF.filter_band_plain(*args)
+            err = max(err, max_abs_err(out, pout))
+            if wb is not None:
+                err = max(err, max_abs_err(wb, pwb))
+                for k in range(3):
+                    bands[-1][k][-3:] = wb[k]
+            if T == 2 and t == 1:
+                row = {"ms": cuda_ms(lambda: LF.filter_band(*args), reps=10),
+                       "plain_ms": span_ms(
+                           lambda: LF.filter_band_plain(*args)),
+                       "band": (cut, n, halo)}
+            bands.append([o.clone() for o in out])
+            halo = [o[-4:].contiguous() for o in out]
+        if err:
+            raise AssertionError(f"filter_band over {T} bands differs from "
+                                 f"its plain version by {err}")
+        got = [torch.cat([b[k] for b in bands]) for k in range(3)]
+        werr = max_abs_err(got, whole)
+        if werr:
+            raise AssertionError(f"{T} bands differ from the whole-plane "
+                                 f"kernel by {werr}")
+        log(f"  {T} bands handed down: equal to the whole-plane kernel; "
+            f"each band launch bit-exact against its plain version")
+    cut, n, halo = row.pop("band")
+    nbytes = 2 * sum(p.numel() for p in cut) + sum(h.numel() for h in halo) \
+        + 3 * sum(h.shape[1] for h in halo)
+    ops = n * (16 * 4 * 2 + 2 * 8 * 2 * 2) * OPS_FILTER_LINE
+    bms, by = bound(nbytes, ops)
+    shape = f"{Wp}x{cut[0].shape[0]} band with 4 halo lines"
+    log(f"  loop_filter band mode ({shape}): kernel {row['ms']:.3f} ms, "
+        f"plain {row['plain_ms']:.1f} ms, bound {bms:.5f} ms ({by})")
+    row.update(shape=shape, max_abs_err=0, bound_ms=bms, bound_by=by)
+    return {"loop_filter": row}
+
+
+def _multirank(what, cfg, frames, world, gop, tile, dev):
+    """`frames` through the single-rank port encoder and through a
+    `world`-rank encode sharing the card over gloo; the streams must be
+    byte-identical.  Returns (the ranks' kernel launches, MBs replaced)."""
+    from vp8oclenc_tpu_torch.config import EncoderConfig
+    from vp8oclenc_tpu_torch.parallel.encoder import encode_frames_spawned
+    from vp8oclenc_tpu_torch.pipeline.encoder import Encoder
+
+    enc = Encoder(EncoderConfig(**cfg), W, H, device=dev)
+    t0 = time.monotonic()
+    want, replaced = [], 0
+    for p in enc.encode_frames(frames):
+        want.append(p)
+        replaced += enc.last_frame_stats["replaced"]
+    dt = time.monotonic() - t0
+    enc.close()
+    t0 = time.monotonic()
+    got, launches, secs = encode_frames_spawned(
+        EncoderConfig(**cfg), frames, W, H, world, "gloo", [dev] * world,
+        gop=gop, tile=tile)
+    wall = time.monotonic() - t0
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} frames of {len(want)}")
+    for i, (a, b) in enumerate(zip(want, got)):
+        if a != b:
+            raise AssertionError(f"{what}: frame {i} differs from the "
+                                 f"single-rank stream ({len(b)} vs {len(a)} "
+                                 f"bytes)")
+    log(f"  {what}: {len(frames)} frames {W}x{H}, {world} ranks (gop {gop} "
+        f"x tile {tile}) sharing one card over gloo (NCCL refuses two ranks "
+        f"on one device): byte-identical to the single-rank stream "
+        f"({sum(map(len, got))} bytes, {replaced} MBs replaced); "
+        f"{len(frames) / secs:.3f} fps over the slowest rank's encode "
+        f"({secs:.2f} s; {wall:.1f} s with the ranks' start), single rank "
+        f"{len(frames) / dt:.3f} fps: a correctness figure for ranks that "
+        f"share one card, not a scaling one; launches "
+        + json.dumps(launches))
+    return launches, replaced
+
+
+def phase_multirank(dev):
+    """The multi-GPU layer at 1080p on the one card: the panned canvas
+    with gop_size=5 (two GOPs) over 4 ranks (2 gop lanes x 2 tiles), then
+    the SSIM-target replacement content over 2 ranks (1 lane x 2 tiles),
+    each byte-identical to the single-rank port encode on the card; every
+    kernel of the path launched in the ranks (the searches and the filter
+    in their shard and band modes)."""
+    total = {}
+    launches, _ = _multirank(
+        "panned canvas, gop_size=5", dict(qi_min=10, qi_max=40, gop_size=5,
+                                          altref_range=3),
+        synth_moving(N_MULTI_FRAMES, seed=4), 4, 2, 2, dev)
+    for name in ("luma_wavefront", "chroma_wavefront", "loop_filter",
+                 "loop_filter_band", "fullpel_search", "fullpel_search_shard",
+                 "qpel_search", "qpel_search_shard"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was never launched by the ranks")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    launches, replaced = _multirank(
+        "replacement content, SSIM target 0.98", SSIM_CFG,
+        synth_replacement(N_MULTI_SSIM_FRAMES, seed=6), 2, 1, 2, dev)
+    if launches["trial_luma"] <= 0 or replaced <= 0:
+        raise AssertionError("the SSIM controller did not run in the ranks")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1157,6 +1448,14 @@ def main() -> int:
     log("[end-to-end] redo-as-key with frames in flight")
     phase_redo(dev)
     log(f"[time] {time.monotonic() - t0:.0f} s")
+    log("[kernels] search kernels on row-shard strips vs plain versions")
+    modes = phase_shard_search(dev)
+    log("[kernels] loop filter in band mode vs plain and whole-plane")
+    modes.update(phase_band_filter(dev))
+    log(f"[time] {time.monotonic() - t0:.0f} s")
+    log("[end-to-end] multi-rank encodes (parallel/), ranks sharing the card")
+    multi = phase_multirank(dev)
+    log(f"[time] {time.monotonic() - t0:.0f} s")
 
     src = {"luma_wavefront": "vp8oclenc_tpu_torch/csrc/intra.cu",
            "chroma_wavefront": "vp8oclenc_tpu_torch/csrc/intra.cu",
@@ -1182,6 +1481,13 @@ def main() -> int:
             "library_ms": None, "bit_exact": r["max_abs_err"] == 0})
         if "chain_ms" in r:
             kernels[-1]["chain_ms"] = statistics.median(r["chain_ms"])
+        kernels[-1]["multirank_launches"] = multi[name]
+        if name in modes:       # the kernel's row-shard or band mode
+            mode = dict(modes[name], launches=multi[
+                "loop_filter_band" if name == "loop_filter"
+                else name + "_shard"])
+            kernels[-1]["band_mode" if name == "loop_filter"
+                        else "shard_mode"] = mode
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

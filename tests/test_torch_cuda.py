@@ -360,3 +360,113 @@ def test_ssim_inter_dispatch_never_waits_for_the_card(dev):
     assert not fd.is_key
     assert enc._finalize_fd(fd, seg) is None
     enc.close()
+
+
+def _strip(plane, row0, rows, pad):
+    idx = torch.arange(row0 - pad, row0 + rows + pad,
+                       device=plane.device).clamp(0, plane.shape[-2] - 1)
+    return plane[..., idx, :].contiguous()
+
+
+@pytest.mark.parametrize("T", [2, 4])
+def test_shard_search_kernels_match_plain(dev, T):
+    """Both searches on reference strips (row-shard mode: ref_off, row0,
+    full_h) at levels 1 and 0 of a 96x192 frame, every shard, vectors to
+    the halo's edge and past the frame: the kernels equal their plain
+    versions; the whole-plane mode (ref_off = row0 = 0, full_h = H) stays
+    as it was."""
+    w, h = 96, 192
+    rng = np.random.default_rng(T)
+    cur = IN.build_pyramid(torch.from_numpy(_planes(w, h, 1)[0]).to(dev))
+    refs = [torch.stack(lv).contiguous() for lv in zip(*(
+        IN.build_pyramid(torch.from_numpy(_planes(w, h, s)[0]).to(dev))
+        for s in (2, 3, 4)))]
+    for lvl in (1, 0):
+        hl, wl = cur[lvl].shape
+        rows, pad = hl // T, IN.PAD_Y_FULL >> lvl
+        for t in range(T):
+            row0 = t * rows
+            strip = _strip(refs[lvl], row0, rows, pad)
+            c = cur[lvl][row0:row0 + rows].contiguous()
+            reach = 62 >> lvl
+            v = rng.integers(-reach, reach + 1, (3, (rows // 8) * (wl // 8),
+                                                 2))
+            v[:, 0], v[:, -1] = -reach, reach
+            v0 = torch.as_tensor(v, dtype=torch.int32, device=dev)
+            args = (pad, row0, hl)
+            for pen in (False, True):
+                assert torch.equal(
+                    IN.fullpel_search(c, strip, v0, pen, *args),
+                    IN.fullpel_search_plain(c, strip, v0, pen, *args))
+            if lvl == 0:
+                fv = torch.as_tensor(v.clip(-60, 60), dtype=torch.int32,
+                                     device=dev)
+                k = IN.qpel_search(c, strip, fv, *args)
+                p = IN.qpel_search_plain(c, strip, fv, *args)
+                assert all(torch.equal(a, b) for a, b in zip(k, p))
+        v0 = torch.as_tensor(rng.integers(-9, 10, (3, (hl // 8) * (wl // 8),
+                                                   2)),
+                             dtype=torch.int32, device=dev)
+        assert torch.equal(IN.fullpel_search(cur[lvl], refs[lvl], v0, True),
+                           IN.fullpel_search_plain(cur[lvl], refs[lvl], v0,
+                                                   True))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("T", [1, 2, 4])
+def test_band_filter_kernel_matches_plain(dev, T):
+    """The filter kernel on bands with the 4 lines above handed in: each
+    band's planes and write-back lines equal the plain band filter, and
+    the bands handed down equal the whole-plane kernel."""
+    w, h = 96, 128
+    args = _filter_args(w, h, 11, dev)
+    planes, sid, inner, lim = args[:3], args[3], args[4], args[5:]
+    whole = LF.filter_planes(*args)
+    n = sid.numel() // T
+    bands, halo = [], None
+    for t in range(T):
+        cut = [p[t * (p.shape[0] // T):(t + 1) * (p.shape[0] // T)]
+               .contiguous() for p in planes]
+        a = (*cut, halo, sid[t * n:(t + 1) * n].contiguous(),
+             inner[t * n:(t + 1) * n].contiguous(), *lim)
+        out, wb = LF.filter_band(*a)
+        pout, pwb = LF.filter_band_plain(*a)
+        assert all(torch.equal(x, y) for x, y in zip(out, pout))
+        assert (wb is None) == (pwb is None) == (t == 0)
+        if wb is not None:
+            assert all(torch.equal(x, y) for x, y in zip(wb, pwb))
+            for k in range(3):
+                bands[-1][k][-3:] = wb[k]
+        bands.append([o.clone() for o in out])
+        halo = [o[-4:].contiguous() for o in out]
+    got = [torch.cat([b[k] for b in bands]) for k in range(3)]
+    assert all(torch.equal(x, y) for x, y in zip(got, whole))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("size,gop,tile", [((176, 144), 2, 1),
+                                           ((176, 128), 1, 2)])
+def test_two_rank_encode_equals_single_rank(dev, size, gop, tile):
+    """Two ranks sharing the card over gloo (two GOP lanes, or one lane of
+    two row tiles) give the single-rank stream, through the kernels."""
+    from vp8oclenc_tpu_torch.parallel.encoder import encode_frames_spawned
+    w, h = size
+    rng = np.random.default_rng(4)
+    yy, xx = np.mgrid[0:h + 32, 0:w + 32]
+    base = (120 + 60 * np.sin(xx / 11.0) * np.cos(yy / 7.0)
+            + rng.integers(0, 30, xx.shape)).clip(0, 255).astype(np.uint8)
+    frames = [Frame(base[2 * t:2 * t + h, 3 * t:3 * t + w].copy(),
+                    base[t:t + h // 2, t:t + w // 2] // 2 + 60,
+                    base[t + 4:t + 4 + h // 2, t:t + w // 2] // 2 + 50)
+              for t in range(6)]
+    cfg = dict(qi_min=10, qi_max=40, gop_size=3, altref_range=2)
+    enc = Encoder(EncoderConfig(**cfg), w, h, device=dev)
+    want = list(enc.encode_frames(frames))
+    enc.close()
+    got, launches, _s = encode_frames_spawned(
+        EncoderConfig(**cfg), frames, w, h, 2, "gloo", [dev] * 2, gop=gop,
+        tile=tile)
+    assert got == want
+    for name in ("luma_wavefront", "chroma_wavefront", "loop_filter_band",
+                 "fullpel_search_shard", "qpel_search_shard"):
+        assert launches[name] > 0, name

@@ -52,6 +52,14 @@
 // The counters (3 per row) and the ticket are scratch that the caller
 // hands in zeroed.
 //
+// Band mode (a row shard of a taller frame, ops/loopfilter.filter_band):
+// the planes are the band's MB rows, and per plane the caller hands in the
+// 4 final lines above the band (from the shard above) and room for 3
+// lines.  Row 0 then takes those 4 lines as its lines above (no counter to
+// wait on: they are final), filters its top MB edge into them, and its
+// storing warp writes the 3 lines the edge changed to the write-back room
+// instead of above the plane.  Null halo pointers: a frame, as before.
+//
 // ptxas (sm_90a, CUDA 12.8): 72 registers, no spills, 112 bytes of static
 // shared memory; dynamic shared memory is 20*(16*mbw+4) + 24*(8*mbw+4)
 // bytes, 61.6 KB at 1920 wide and 123 KB at 3840, so the launcher raises
@@ -171,16 +179,30 @@ __device__ void filter_row(int role, uint8_t* out, int* prog, uint8_t* band,
                            int* s_loaded, int* s_done,
                            const int* __restrict__ seg,
                            const uint8_t* __restrict__ inner, const int* lf,
+                           const uint8_t* __restrict__ halo, uint8_t* wb,
                            int mbw, int mbh, int r, int lane) {
   using V = typename Vec<N>::T;
   constexpr int VW = N / 4;                   // words per MB line
   const int W = mbw * N, pitch = W + 4, pw = pitch / 4;
   uint32_t* bw = reinterpret_cast<uint32_t*>(band);
+  const bool above = r > 0 || halo != nullptr;   // lines above row r
 
   if (role == ROLE_LOAD) {
     // Row r-1's bottom 4 lines, MB by MB as its counter allows: from L2
-    // (__ldcg) behind the acquire, never from a stale L1 line.
-    if (r == 0) return;
+    // (__ldcg) behind the acquire, never from a stale L1 line.  A band's
+    // row 0 takes the halo's, final already.
+    if (r == 0) {
+      if (halo == nullptr) return;
+      for (int i = lane; i < 4 * mbw; i += 32) {
+        const int l = i & 3, k = i >> 2;
+        V v = __ldg(reinterpret_cast<const V*>(halo + ((size_t)l * W + k * N)));
+        const uint32_t* w = reinterpret_cast<const uint32_t*>(&v);
+#pragma unroll
+        for (int j = 0; j < VW; ++j) bw[l * pw + 1 + k * VW + j] = w[j];
+      }
+      post<false>(s_loaded, mbw, lane);
+      return;
+    }
     int have = 0;
     while (have < mbw) {
       const int seen = wait_above<true>(prog + r - 1, have, lane);
@@ -213,13 +235,15 @@ __device__ void filter_row(int role, uint8_t* out, int* prog, uint8_t* band,
       seen = seen == mbw ? mbw : seen - 1;
       for (int i = lane; i < LN * (seen - have); i += 32) {
         const int l = 1 + i % LN, k = have + i / LN;
-        if (r > 0 || l >= 4) {
+        if (r > 0 || l >= 4 || wb != nullptr) {
           V v;
           uint32_t* w = reinterpret_cast<uint32_t*>(&v);
 #pragma unroll
           for (int j = 0; j < VW; ++j) w[j] = bw[l * pw + 1 + k * VW + j];
-          *reinterpret_cast<V*>(out + ((size_t)(r * N - 4 + l) * W + k * N)) =
-              v;
+          uint8_t* dst = r > 0 || l >= 4
+                             ? out + ((size_t)(r * N - 4 + l) * W + k * N)
+                             : wb + ((size_t)(l - 1) * W + k * N);
+          *reinterpret_cast<V*>(dst) = v;
         }
       }
       if (r + 1 < mbh) post<true>(prog + r, seen, lane);
@@ -228,7 +252,7 @@ __device__ void filter_row(int role, uint8_t* out, int* prog, uint8_t* band,
     return;
   }
 
-  int loaded = r > 0 ? 0 : mbw;
+  int loaded = above ? 0 : mbw;
   int s = seg[r * mbw];
   bool inn = inner[r * mbw] != 0;
   for (int bx = 0; bx < mbw; ++bx) {
@@ -267,7 +291,7 @@ __device__ void filter_row(int role, uint8_t* out, int* prog, uint8_t* band,
         uint8_t* p = band + 4 + bx * N + lane;
 #pragma unroll
         for (int l = 0; l < N + 4; ++l) t[l] = (int)p[l * pitch] - 128;
-        filter_taps<N>(t, r > 0, cinn, mbe, sbe, il, hv);
+        filter_taps<N>(t, above, cinn, mbe, sbe, il, hv);
 #pragma unroll
         for (int l = 0; l < N + 4; ++l) p[l * pitch] = (uint8_t)(t[l] + 128);
       }
@@ -281,6 +305,8 @@ constexpr int kThreads = 288;                 // 3 planes x 3 roles, a warp each
 // lf: (5, 4) int32 rows level, MB-edge limit, subblock-edge limit,
 // interior limit, HEV threshold; columns the 4 segments.  sync: 3*mbh
 // progress counters (plane-major) and the row ticket, all 0 at launch.
+// hy/hu/hv: null, or a band's 4 lines above each plane; wy/wu/wv: then
+// room for the 3 of them that come back.
 __global__ void __launch_bounds__(kThreads)
     loop_filter_rows_kernel(const uint8_t* __restrict__ y,
                             const uint8_t* __restrict__ u,
@@ -288,7 +314,11 @@ __global__ void __launch_bounds__(kThreads)
                             uint8_t* ou, uint8_t* ov,
                             const int* __restrict__ seg,
                             const uint8_t* __restrict__ inner,
-                            const int* __restrict__ lf, int* sync, int mbw,
+                            const int* __restrict__ lf,
+                            const uint8_t* __restrict__ hy,
+                            const uint8_t* __restrict__ hu,
+                            const uint8_t* __restrict__ hv, uint8_t* wy,
+                            uint8_t* wu, uint8_t* wv, int* sync, int mbw,
                             int mbh) {
   extern __shared__ uint4 smem[];
   __shared__ int s_row;
@@ -314,19 +344,21 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (plane == 0)
     filter_row<16>(role, oy, sync, band_y, s_loaded, s_done, seg, inner, s_lf,
-                   mbw, mbh, r, lane);
+                   hy, wy, mbw, mbh, r, lane);
   else if (plane == 1)
     filter_row<8>(role, ou, sync + mbh, band_u, s_loaded, s_done, seg, inner,
-                  s_lf, mbw, mbh, r, lane);
+                  s_lf, hu, wu, mbw, mbh, r, lane);
   else
     filter_row<8>(role, ov, sync + 2 * mbh, band_v, s_loaded, s_done, seg,
-                  inner, s_lf, mbw, mbh, r, lane);
+                  inner, s_lf, hv, wv, mbw, mbh, r, lane);
 }
 
 }  // namespace
 
 extern "C" int vp8_loop_filter(const void* y, const void* u, const void* v,
-                               void* oy, void* ou, void* ov, const void* seg,
+                               void* oy, void* ou, void* ov, const void* hy,
+                               const void* hu, const void* hv, void* wy,
+                               void* wu, void* wv, const void* seg,
                                const void* inner, const void* lf, void* sync,
                                int mbw, int mbh, void* stream) {
   const int smem = 20 * (16 * mbw + 4) + 24 * (8 * mbw + 4);
@@ -337,6 +369,8 @@ extern "C" int vp8_loop_filter(const void* y, const void* u, const void* v,
   loop_filter_rows_kernel<<<mbh, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)y, (const uint8_t*)u, (const uint8_t*)v, (uint8_t*)oy,
       (uint8_t*)ou, (uint8_t*)ov, (const int*)seg, (const uint8_t*)inner,
-      (const int*)lf, (int*)sync, mbw, mbh);
+      (const int*)lf, (const uint8_t*)hy, (const uint8_t*)hu,
+      (const uint8_t*)hv, (uint8_t*)wy, (uint8_t*)wu, (uint8_t*)wv,
+      (int*)sync, mbw, mbh);
   return (int)cudaGetLastError();
 }

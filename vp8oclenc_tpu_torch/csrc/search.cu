@@ -196,16 +196,21 @@ __device__ __forceinline__ int pick(const int (&a)[N], int k) {
   return v;
 }
 
-// cur (H, W) u8, refs (R, H, W) u8, v0 (R, n, 2) i32 -> out (R, n, 2) i32
+// cur (H, W) u8, refs (R, HR, W) u8, v0 (R, n, 2) i32 -> out (R, n, 2) i32
 // offsets (x, y) of the winning candidate from the block.  A warp takes a
 // block and REFS references (3, or 1 on a level of few blocks).  `words`:
-// W is a multiple of 4 and the planes are word-aligned.
+// W is a multiple of 4 and the planes are word-aligned.  Row shards: cur's
+// row 0 is row ref_off of the reference planes (a strip of HR rows, read
+// clamped into the strip) and row row0 of a frame of full_h rows, which
+// bounds the candidates; a whole plane is HR = full_h = H, ref_off = row0
+// = 0.
 template <int REFS>
 __global__ void __launch_bounds__(kFpWarps * 32)
     fullpel_kernel(const uint8_t* __restrict__ cur,
                    const uint8_t* __restrict__ refs,
                    const int* __restrict__ v0, int* __restrict__ out, int R,
-                   int W, int H, int penalty, int words) {
+                   int W, int H, int HR, int ref_off, int row0, int full_h,
+                   int penalty, int words) {
   __shared__ uint32_t s_px[kFpWarps][2 * REFS * 12 * 3];  // 12 x 12 bytes
   __shared__ int4 s_col[kFpWarps][2 * REFS * kColWin];
   __shared__ int4 s_cur[kFpWarps][16];  // column stage (qr, x): qr * 8 + x
@@ -235,10 +240,10 @@ __global__ void __launch_bounds__(kFpWarps * 32)
       const int win = item / 12, row = item % 12, k = win >> 1;
       const bool at_v = (win & 1) == 0;
       const int ox = cx - 2 + (at_v ? pick(vx, k) : 0);
-      const int oy =
-          clampi(cy - 2 + row + (at_v ? pick(vy, k) : 0), 0, H - 1);
+      const int oy = clampi(
+          cy - 2 + row + ref_off + (at_v ? pick(vy, k) : 0), 0, HR - 1);
       const uint8_t* p =
-          refs + (size_t)pick(ref, k) * W * H + (size_t)oy * W;
+          refs + (size_t)pick(ref, k) * W * HR + (size_t)oy * W;
       uint32_t o[3];
       if (words && ox >= 0 && ox + 12 <= W) {
         const int x0 = ox & ~3, sh = 8 * (ox & 3);
@@ -315,7 +320,8 @@ __global__ void __launch_bounds__(kFpWarps * 32)
     const int wx = w == 0 ? vxr : 0, wy = w == 0 ? vyr : 0;
     const int px = cx + wx + dx, py = cy + wy + dy;
     at[k] = (2 * rk + w) * kColWin + (dy + 2) * kColPitch + dx + 2;
-    add[k] = (px >= 0 && px <= W - 8 && py >= 0 && py <= H - 8)
+    add[k] = (px >= 0 && px <= W - 8 && py + row0 >= 0 &&
+              py + row0 <= full_h - 8)
                  ? (penalty ? (abs(wx + dx - vxr) + abs(wy + dy - vyr)) * kPen
                             : 0)
                  : -1;
@@ -430,10 +436,11 @@ __device__ __forceinline__ void hpass(const uint32_t* win, uint32_t* slots,
   slots[DI * kSlot * 4 + lane] = word;
 }
 
-// cur (H, W) u8, refs (R, H, W) u8, fv (R, n, 2) i32 full-pel vectors ->
+// cur (H, W) u8, refs (R, HR, W) u8, fv (R, n, 2) i32 full-pel vectors ->
 // vec (R, n, 2) i32 qpel, cost (R, n) i32, pred (R, n, 64) u8.  `words`:
-// W is a multiple of 4 and the planes are word-aligned.  Three CTAs an SM:
-// 80 registers, no spills, 24 warps to hide the latency of the dependent
+// W is a multiple of 4 and the planes are word-aligned.  ref_off, row0,
+// full_h: row shards as in fullpel_kernel, the bounds in quarter pels.
+// Three CTAs an SM: 80 registers, no spills, 24 warps to hide the latency of the dependent
 // filter and transform chains (unbounded it takes 86 and two CTAs fit, 10%
 // slower; at four, 64 registers, it spills and is slower again).
 __global__ void __launch_bounds__(kWarps * 32, 3)
@@ -441,7 +448,7 @@ __global__ void __launch_bounds__(kWarps * 32, 3)
                 const uint8_t* __restrict__ refs, const int* __restrict__ fv,
                 int* __restrict__ vec_out, int* __restrict__ cost_out,
                 uint8_t* __restrict__ pred_out, int R, int W, int H,
-                int words) {
+                int HR, int ref_off, int row0, int full_h, int words) {
   __shared__ uint32_t s_win[kWarps][kWinWords];  // 16 rows x 20 bytes
   __shared__ uint4 s_h[kWarps][6 * kSlot];       // 5 H passes + zero vector
   __shared__ int4 s_cur[kWarps][16];             // current block, int32
@@ -450,7 +457,7 @@ __global__ void __launch_bounds__(kWarps * 32, 3)
   const int job = blockIdx.x * kWarps + warp;
   if (job >= R * n) return;            // whole warps only: no CTA barrier
   const int b = job % n;
-  const uint8_t* ref = refs + (size_t)(job / n) * W * H;
+  const uint8_t* ref = refs + (size_t)(job / n) * W * HR;
   const int cx = (b % nbx) * 8, cy = (b / nbx) * 8;
   const int fx = fv[2 * job], fy = fv[2 * job + 1];
 
@@ -465,7 +472,7 @@ __global__ void __launch_bounds__(kWarps * 32, 3)
 #pragma unroll
     for (int it = 0; it < 7; ++it) {
       const int row = 2 * it + rsub;
-      const int yy = clampi(cy + fy - 3 + row, 0, H - 1);
+      const int yy = clampi(cy + fy - 3 + row + ref_off, 0, HR - 1);
       wb[row * (4 * kWinPitch) + col] = ref[(size_t)yy * W + xx];
     }
     const int r = (lane & 15) >> 1, half = lane & 1;
@@ -475,7 +482,7 @@ __global__ void __launch_bounds__(kWarps * 32, 3)
       s_cur[warp][lane] = make_int4(w & 255, (w >> 8) & 255, (w >> 16) & 255,
                                     w >> 24);
     } else {
-      const uint32_t w = load4(ref + at, words);
+      const uint32_t w = load4(ref + at + (size_t)ref_off * W, words);
       uint8_t* zb = reinterpret_cast<uint8_t*>(s_h[warp] + 5 * kSlot);
 #pragma unroll
       for (int k = 0; k < 4; ++k)
@@ -547,8 +554,9 @@ __global__ void __launch_bounds__(kWarps * 32, 3)
   }
   const int pen = (abs(dx) + abs(dy)) * kPen;    // 0 for the zero vector
   const int px = (cx + fx) * 4 + dx, py = (cy + fy) * 4 + dy;
-  const bool valid = c == 25 || (px >= 0 && px <= W * 4 - 32 && py >= 0 &&
-                                 py <= H * 4 - 32);
+  const int gy = py + 4 * row0;
+  const bool valid = c == 25 || (px >= 0 && px <= W * 4 - 32 && gy >= 0 &&
+                                 gy <= full_h * 4 - 32);
   unsigned key = valid ? ((unsigned)(cost + pen) << 5) : 0x7fffffe0u;
   key = lane < 26 ? (key | (unsigned)lane) : 0xffffffffu;
   const unsigned best = __reduce_min_sync(0xffffffffu, key);
@@ -577,7 +585,8 @@ int grid_for(int jobs) { return (jobs + kWarps - 1) / kWarps; }
 
 extern "C" int vp8_fullpel_search(const void* cur, const void* refs,
                                   const void* v0, void* out, int R, int W,
-                                  int H, int penalty, void* stream) {
+                                  int H, int HR, int ref_off, int row0,
+                                  int full_h, int penalty, void* stream) {
   const int n = (W / 8) * (H / 8);
   // word loads where every row of every plane starts on a word
   const int words = W % 4 == 0 && (uintptr_t)refs % 4 == 0;
@@ -585,18 +594,20 @@ extern "C" int vp8_fullpel_search(const void* cur, const void* refs,
     fullpel_kernel<1><<<(R * n + kFpWarps - 1) / kFpWarps, kFpWarps * 32, 0,
                         (cudaStream_t)stream>>>(
         (const uint8_t*)cur, (const uint8_t*)refs, (const int*)v0,
-        (int*)out, R, W, H, penalty, words);
+        (int*)out, R, W, H, HR, ref_off, row0, full_h, penalty, words);
   else
     fullpel_kernel<3><<<((R + 2) / 3 * n + kFpWarps - 1) / kFpWarps,
                         kFpWarps * 32, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)cur, (const uint8_t*)refs, (const int*)v0,
-        (int*)out, R, W, H, penalty, words);
+        (int*)out, R, W, H, HR, ref_off, row0, full_h, penalty, words);
   return (int)cudaGetLastError();
 }
 
 extern "C" int vp8_qpel_search(const void* cur, const void* refs,
                                const void* fv, void* vec, void* cost,
-                               void* pred, int R, int W, int H, void* stream) {
+                               void* pred, int R, int W, int H, int HR,
+                               int ref_off, int row0, int full_h,
+                               void* stream) {
   const int jobs = R * (W / 8) * (H / 8);
   // word loads where every row of every plane starts on a word
   const int words = W % 4 == 0 && (uintptr_t)cur % 4 == 0 &&
@@ -604,6 +615,6 @@ extern "C" int vp8_qpel_search(const void* cur, const void* refs,
   if ((uintptr_t)pred % 16) return (int)cudaErrorMisalignedAddress;
   qpel_kernel<<<grid_for(jobs), kWarps * 32, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)cur, (const uint8_t*)refs, (const int*)fv, (int*)vec,
-      (int*)cost, (uint8_t*)pred, R, W, H, words);
+      (int*)cost, (uint8_t*)pred, R, W, H, HR, ref_off, row0, full_h, words);
   return (int)cudaGetLastError();
 }

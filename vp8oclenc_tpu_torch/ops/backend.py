@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from vp8oclenc_tpu_torch.config import EncoderConfig
+from vp8oclenc_tpu_torch.pipeline.control import redo_reason, take_weak_filter
 from vp8oclenc_tpu_torch.ssim_fx import Q3, WEAKEN_FX, target_fx
 from vp8oclenc_tpu_torch.tables import (ALTREF, ARE4X4, ARE16X16, GOLDEN,
                                         INTRA_SEGMENT, LAST, SEGMENT_COUNT)
@@ -111,7 +112,7 @@ class TorchBackend:
         ry, ru, rv, levels_pack, modes = intra_body(
             yd, ud, vd, int(seg.y_dc_q[sid]), int(seg.y_ac_q[sid]),
             int(seg.uv_dc_q[sid]), int(seg.uv_ac_q[sid]))
-        lf_dev = upload(self._lf_rows(seg), self.device)
+        lf_dev = upload(lf_rows(seg), self.device)
         filtered = filter_planes(ry, ru, rv, self._key_seg, self._key_inner,
                                  *lf_dev)
         self._set_last(filtered)
@@ -146,9 +147,7 @@ class TorchBackend:
         from vp8oclenc_tpu_torch.pipeline.encoder import FrameData
         from vp8oclenc_tpu_torch.pipeline.segments import prepare_segments
 
-        use_golden = not enc.prev_is_golden
-        use_altref = (not enc.prev_is_altref) and \
-            (enc.altref_frame_number != enc.golden_frame_number)
+        use_golden, use_altref = enc.refs.usable()
         ls = self.last_state
         gs = self.golden_state \
             if (use_golden and self.golden_state is not None) else ls
@@ -171,7 +170,7 @@ class TorchBackend:
         # are selected there when min SSIM > WEAKEN_FX
         weak = prepare_segments(self.cfg, y, False, is_altref,
                                 weaken_filter=True, strength=seg.raw_strength)
-        lf = upload(np.stack([self._lf_rows(s_) for s_ in (seg, weak)]),
+        lf = upload(np.stack([lf_rows(s_) for s_ in (seg, weak)]),
                     self.device)
         filtered = filter_from_meta(ry, ru, rv, levels_pack, meta, cur_ssim,
                                     lf)
@@ -189,15 +188,6 @@ class TorchBackend:
         fd.weak_seg = weak
         enc.recon = PendingRecon(filtered)
         return fd
-
-    @staticmethod
-    def _lf_rows(seg) -> np.ndarray:
-        """(5, 4) int32 per-segment filter level, MB-edge limit, subblock
-        limit, interior limit and HEV threshold."""
-        return np.stack([np.asarray(a, dtype=np.int32).reshape(SEGMENT_COUNT)
-                         for a in (seg.loop_filter_level, seg.mbedge_limit,
-                                   seg.sub_bedge_limit, seg.interior_limit,
-                                   seg.hev_threshold)])
 
     def finalize_framedata(self, fd, seg):
         """Wait for the frame's D2H and fill the FrameData: levels and
@@ -234,12 +224,11 @@ class TorchBackend:
         if len(outs) > 4:
             fd.modes = outs[4].numpy()
             fd.replaced = int(outs[5])
-            if fd.ssim_sum_fx < target_fx(self.cfg.ssim_target) * self.mbc:
-                return "ssim"
-            if fd.replaced > self.mbc // 6:
-                return "replaced"
-        if fd.ssim_min_fx > WEAKEN_FX:
-            seg.__dict__.update(fd.weak_seg.__dict__)
+            reason = redo_reason(fd.ssim_sum_fx, fd.replaced, self.mbc,
+                                 target_fx(self.cfg.ssim_target))
+            if reason:
+                return reason
+        take_weak_filter(seg, fd.weak_seg, fd.ssim_min_fx)
         return None
 
     def promote_refs(self, is_golden: bool, is_altref: bool) -> None:
@@ -265,6 +254,15 @@ class TorchBackend:
         return tuple(p.cpu().numpy() for p in self.last)
 
 
+def lf_rows(seg) -> np.ndarray:
+    """(5, 4) int32 per-segment filter level, MB-edge limit, subblock
+    limit, interior limit and HEV threshold."""
+    return np.stack([np.asarray(a, dtype=np.int32).reshape(SEGMENT_COUNT)
+                     for a in (seg.loop_filter_level, seg.mbedge_limit,
+                               seg.sub_bedge_limit, seg.interior_limit,
+                               seg.hev_threshold)])
+
+
 def filter_from_meta(ry, ru, rv, levels_pack, meta, cur_ssim, lf):
     """Loop filter fed from the inter body's device outputs: the inner-edge
     mask (a split MB or any nonzero level) and segment ids come from
@@ -273,9 +271,22 @@ def filter_from_meta(ry, ru, rv, levels_pack, meta, cur_ssim, lf):
     min(cur_ssim) > WEAKEN_FX.  Nothing waits for the host.  Returns the
     filtered planes."""
     from vp8oclenc_tpu_torch.ops.loopfilter import filter_planes
-    inner = (meta[:, 1] != ARE16X16) | (levels_pack != 0).flatten(1).any(1)
-    lf_use = torch.where(cur_ssim.min() > WEAKEN_FX, lf[1], lf[0])
-    return filter_planes(ry, ru, rv, meta[:, 0], inner, *lf_use)
+    return filter_planes(ry, ru, rv, meta[:, 0],
+                         inner_mask(levels_pack, meta),
+                         *filter_limits(cur_ssim.min(), lf))
+
+
+def filter_limits(min_fx, lf):
+    """The limits of lf (2, 5, 4) that the frame is filtered with, chosen
+    on the device: the weakened ones when the frame's minimum MB SSIM
+    min_fx (a 0-d tensor) exceeds WEAKEN_FX, the rule the frame header
+    follows (pipeline/control.take_weak_filter)."""
+    return torch.where(min_fx > WEAKEN_FX, lf[1], lf[0])
+
+
+def inner_mask(levels_pack, meta):
+    """Per MB: filter its inner edges (a split MB, or any nonzero level)."""
+    return (meta[:, 1] != ARE16X16) | (levels_pack != 0).flatten(1).any(1)
 
 
 class PendingRecon:

@@ -31,12 +31,13 @@ _SIGNATURES = {
         "vp8_trial_luma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "loopfilter": {
-        "vp8_loop_filter": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                            _P],
+        "vp8_loop_filter": [_P] * 16 + [_I, _I, _P],
     },
     "search": {
-        "vp8_fullpel_search": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "vp8_qpel_search": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "vp8_fullpel_search": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _P],
+        "vp8_qpel_search": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _P],
     },
     # not a kernel of the encoder: the integer-rate probe of chip_smoke.py
     "probe": {

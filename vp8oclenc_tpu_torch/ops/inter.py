@@ -19,6 +19,13 @@ gather; here every read is clamped into the level's own plane instead,
 which is the same thing (spec/motion._gather_blocks): every read of a
 valid candidate stays inside the apron.
 
+A row shard of a taller frame (a tile rank of the multi-GPU layer,
+parallel/tile.py) searches reference strips: its band with PAD_Y_FULL >> l
+halo rows above and below at levels 0 and 1, the whole plane at levels
+2..4 (`hierarchical_search` in shard mode); the searches take the strip's row
+offset, the band's first row `row0` and the frame's height `full_h`, and
+judge a candidate by its row in the frame.
+
 The two searches have two versions with one contract each:
   * `fullpel_search_plain`, `qpel_search_plain`: plain PyTorch on any
     device, the reference the CUDA kernels are held against;
@@ -42,6 +49,12 @@ _I32 = torch.int32
 VECTOR_DIFF_WEIGHT = 64
 PEN = VECTOR_DIFF_WEIGHT // 2   # smoothness penalty per pel of |delta|
 BIG = 1 << 28                   # cost of a candidate outside the frame
+# Halo rows of a row shard's reference strips: the farthest a valid
+# candidate reads at full resolution (|v| <= 62 full pels, the window's 2,
+# the six-tap apron's 3 and the quarter-pel shift's 1) is below 80 luma
+# rows, and chroma reads reach below 48 rows of the half-size plane.
+PAD_Y_FULL = 80
+PAD_C_FULL = 48
 _CHUNK = 2048                   # blocks per step of the plain searches
 
 
@@ -101,17 +114,26 @@ def _first_min(costs: torch.Tensor) -> torch.Tensor:
 
 
 def fullpel_search_plain(cur: torch.Tensor, refs: torch.Tensor,
-                         v0: torch.Tensor, penalty: bool) -> torch.Tensor:
+                         v0: torch.Tensor, penalty: bool, ref_off: int = 0,
+                         row0: int = 0, full_h: int = 0) -> torch.Tensor:
     """Dual-window full-pel search of every 8x8 block of one pyramid level.
 
-    cur (H, W) u8; refs (R, H, W) u8; v0 (R, n, 2) int32 inherited vectors
+    cur (H, W) u8; refs (R, HR, W) u8; v0 (R, n, 2) int32 inherited vectors
     (x, y) in this level's pels, n = (H//8)*(W//8) blocks in raster order.
     Candidates: window 1 = +-2 around v0 (indices 0..24, dy-major), then
     window 0 = +-2 around zero (25..49).  Cost = dct_cost_8x8 of the
     residual, plus 32*(|dx|+|dy|) from v0 when `penalty`; a candidate whose
-    block leaves the W x H plane costs BIG.  The earliest minimum wins.
-    Returns (R, n, 2) int32 offsets (x, y) of the winner from the block."""
-    R, H, W = refs.shape
+    block leaves the frame costs BIG.  The earliest minimum wins.  Returns
+    (R, n, 2) int32 offsets (x, y) of the winner from the block.
+
+    Row shards: cur is the band of a `full_h`-row frame (0: H) that starts
+    at the frame's row `row0`, and cur's row 0 is row `ref_off` of the
+    reference planes (a strip: the band with halo rows above and below).
+    A candidate is out of the frame when its global row py + row0 leaves
+    [0, full_h - 8]; reads are clamped into the strip."""
+    R, HR, W = refs.shape
+    H = cur.shape[0]
+    full_h = full_h or H
     nby, nbx = H // 8, W // 8
     n = nby * nbx
     dev = cur.device
@@ -128,7 +150,7 @@ def fullpel_search_plain(cur: torch.Tensor, refs: torch.Tensor,
         v = v0[:, s:e].long()
         wx = torch.stack([v[..., 0], torch.zeros_like(v[..., 0])])  # (2, R, nb)
         wy = torch.stack([v[..., 1], torch.zeros_like(v[..., 1])])
-        win = _gather(refs, ridx, bcy + wy - 2, bcx + wx - 2, 12)
+        win = _gather(refs, ridx, bcy + wy - 2 + ref_off, bcx + wx - 2, 12)
         cand = win.unfold(-2, 8, 1).unfold(-2, 8, 1)       # (2,R,nb,5,5,8,8)
         cost = T.dct_cost_8x8(cand - cur_b[:, None, None]).flatten(-2)
         px = bcx[:, None] + wx[..., None] + ddx                # (2, R, nb, 25)
@@ -137,7 +159,8 @@ def fullpel_search_plain(cur: torch.Tensor, refs: torch.Tensor,
             cost = cost + ((px - bcx[:, None] - v[None, ..., 0, None]).abs()
                            + (py - bcy[:, None] - v[None, ..., 1, None])
                            .abs()) * PEN
-        bad = (px < 0) | (px > W - 8) | (py < 0) | (py > H - 8)
+        bad = (px < 0) | (px > W - 8) | (py + row0 < 0) \
+            | (py + row0 > full_h - 8)
         cost = torch.where(bad, BIG, cost)
         flat = lambda a: a.permute(1, 2, 0, 3).reshape(R, e - s, 50)
         best = _first_min(flat(cost))[..., None]
@@ -147,10 +170,13 @@ def fullpel_search_plain(cur: torch.Tensor, refs: torch.Tensor,
 
 
 def qpel_search_plain(cur: torch.Tensor, refs: torch.Tensor,
-                      fv: torch.Tensor):
+                      fv: torch.Tensor, ref_off: int = 0, row0: int = 0,
+                      full_h: int = 0):
     """Quarter-pel refinement of every 8x8 block of the full-res plane.
 
-    cur (H, W) u8; refs (R, H, W) u8; fv (R, n, 2) int32 full-pel vectors.
+    cur (H, W) u8; refs (R, HR, W) u8; fv (R, n, 2) int32 full-pel vectors;
+    ref_off, row0, full_h: row shards as in `fullpel_search_plain`, the
+    bounds in quarter pels.
     Candidates 0..24: +-2 qpel around 4*fv (dy-major), each interpolated
     six-tap H then V with clip((x+64)>>7, 0, 255) after each pass, cost
     dct_cost_8x8 + 32*(|dx|+|dy|), BIG outside [0, 4W-32] x [0, 4H-32];
@@ -159,7 +185,9 @@ def qpel_search_plain(cur: torch.Tensor, refs: torch.Tensor,
     Returns (vec (R, n, 2) int32 qpel, cost (R, n) int32 with the penalty
     taken back out for a nonzero vector, pred (R, n, 64) u8: the winner's
     prediction, the luma motion-compensated prediction)."""
-    R, H, W = refs.shape
+    R, W = refs.shape[0], refs.shape[2]
+    H = cur.shape[0]
+    full_h = full_h or H
     nby, nbx = H // 8, W // 8
     n = nby * nbx
     dev = cur.device
@@ -189,20 +217,22 @@ def qpel_search_plain(cur: torch.Tensor, refs: torch.Tensor,
         f = fv[:, s:e].long()
         # rows/cols -3..+10 around the full-pel base cover every candidate
         # and its six-tap apron
-        win = _gather(refs, ridx, bcy + f[..., 1] - 3, bcx + f[..., 0] - 3,
-                      14)                                         # (R,nb,14,14)
+        win = _gather(refs, ridx, bcy + f[..., 1] - 3 + ref_off,
+                      bcx + f[..., 0] - 3, 14)                    # (R,nb,14,14)
         hs = [tap6(win, -1, (dx >> 2) + 1, (dx & 3) * 2)
               for dx in range(-2, 3)]                             # (R,nb,14,8)
         preds = [tap6(hs[dx + 2], -2, (dy >> 2) + 1, (dy & 3) * 2)
                  for dy in range(-2, 3) for dx in range(-2, 3)]
-        preds.append(_gather(refs, ridx, bcy, bcx, 8))            # zero vector
+        preds.append(_gather(refs, ridx, bcy + ref_off, bcx, 8))  # zero vector
         preds = torch.stack(preds, dim=2)                         # (R,nb,26,8,8)
         cost = T.dct_cost_8x8(preds - cur_b[:, None])             # (R, nb, 26)
         px = torch.cat([(bcx * 4)[:, None] + f[..., 0, None] * 4 + ddx,
                         (bcx * 4)[None, :, None].expand(R, -1, 1)], dim=-1)
         py = torch.cat([(bcy * 4)[:, None] + f[..., 1, None] * 4 + ddy,
                         (bcy * 4)[None, :, None].expand(R, -1, 1)], dim=-1)
-        bad = (px < 0) | (px > W * 4 - 32) | (py < 0) | (py > H * 4 - 32)
+        gy = py + row0 * 4
+        bad = (px < 0) | (px > W * 4 - 32) | (gy < 0) \
+            | (gy > full_h * 4 - 32)
         cost = torch.where(bad, BIG, cost + pen)
         best = _first_min(cost)[..., None]
         vx = px.gather(-1, best)[..., 0] - bcx * 4
@@ -228,7 +258,7 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _check_search(name: str, cur, refs, vecs) -> None:
+def _check_search(name: str, cur, refs, vecs, ref_off: int) -> None:
     for t, what, dt, nd in ((cur, "cur", torch.uint8, 2),
                             (refs, "refs", torch.uint8, 3),
                             (vecs, "vectors", _I32, 3)):
@@ -238,43 +268,52 @@ def _check_search(name: str, cur, refs, vecs) -> None:
         if t.dtype != dt or t.dim() != nd or not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be a contiguous {nd}-D "
                              f"{dt} tensor, got {t.dtype} {tuple(t.shape)}")
-    R, H, W = refs.shape
-    if cur.shape != (H, W) or H < 8 or W < 8 \
-            or vecs.shape != (R, (H // 8) * (W // 8), 2):
+    R, HR, W = refs.shape
+    H = cur.shape[0]
+    if cur.shape[1] != W or H < 8 or W < 8 \
+            or vecs.shape != (R, (H // 8) * (W // 8), 2) \
+            or not 0 <= ref_off <= HR - H:
         raise ValueError(f"{name}: shapes cur {tuple(cur.shape)}, refs "
                          f"{tuple(refs.shape)}, vectors {tuple(vecs.shape)} "
-                         f"do not match")
+                         f"and ref_off {ref_off} do not match")
 
 
 def fullpel_search(cur: torch.Tensor, refs: torch.Tensor, v0: torch.Tensor,
-                   penalty: bool) -> torch.Tensor:
+                   penalty: bool, ref_off: int = 0, row0: int = 0,
+                   full_h: int = 0) -> torch.Tensor:
     """Full-pel search (contract of `fullpel_search_plain`): the
     csrc/search.cu kernel for CUDA tensors, the plain version for CPU
     tensors."""
     if cur.device.type == "cpu":
-        return fullpel_search_plain(cur, refs, v0, penalty)
-    _check_search("fullpel_search", cur, refs, v0)
+        return fullpel_search_plain(cur, refs, v0, penalty, ref_off, row0,
+                                    full_h)
+    _check_search("fullpel_search", cur, refs, v0, ref_off)
     from vp8oclenc_tpu_torch.ops import cuda_build
-    R, H, W = refs.shape
+    R, HR, W = refs.shape
+    H = cur.shape[0]
     out = torch.empty_like(v0)
     rc = cuda_build.library("search").vp8_fullpel_search(
-        _ptr(cur), _ptr(refs), _ptr(v0), _ptr(out), R, W, H, int(penalty),
+        _ptr(cur), _ptr(refs), _ptr(v0), _ptr(out), R, W, H, HR, ref_off,
+        row0, full_h or H, int(penalty),
         ctypes.c_void_p(torch.cuda.current_stream(cur.device).cuda_stream))
     cuda_build.check(rc, "vp8_fullpel_search")
     fullpel_search.launches += 1
+    fullpel_search.shard_launches += HR != H
     return out
 
 
 fullpel_search.launches = 0
+fullpel_search.shard_launches = 0     # of them on a strip (a row shard)
 
 
-def qpel_search(cur: torch.Tensor, refs: torch.Tensor, fv: torch.Tensor):
+def qpel_search(cur: torch.Tensor, refs: torch.Tensor, fv: torch.Tensor,
+                ref_off: int = 0, row0: int = 0, full_h: int = 0):
     """Quarter-pel search (contract of `qpel_search_plain`): the
     csrc/search.cu kernel for CUDA tensors, the plain version for CPU
     tensors."""
     if cur.device.type == "cpu":
-        return qpel_search_plain(cur, refs, fv)
-    _check_search("qpel_search", cur, refs, fv)
+        return qpel_search_plain(cur, refs, fv, ref_off, row0, full_h)
+    _check_search("qpel_search", cur, refs, fv, ref_off)
     from vp8oclenc_tpu_torch.ops import cuda_build
     R, n = fv.shape[:2]
     vec = torch.empty_like(fv)
@@ -283,14 +322,16 @@ def qpel_search(cur: torch.Tensor, refs: torch.Tensor, fv: torch.Tensor):
     H, W = cur.shape
     rc = cuda_build.library("search").vp8_qpel_search(
         _ptr(cur), _ptr(refs), _ptr(fv), _ptr(vec), _ptr(cost), _ptr(pred),
-        R, W, H,
+        R, W, H, refs.shape[1], ref_off, row0, full_h or H,
         ctypes.c_void_p(torch.cuda.current_stream(cur.device).cuda_stream))
     cuda_build.check(rc, "vp8_qpel_search")
     qpel_search.launches += 1
+    qpel_search.shard_launches += refs.shape[1] != H
     return vec, cost, pred
 
 
 qpel_search.launches = 0
+qpel_search.shard_launches = 0        # of them on a strip (a row shard)
 
 
 # ---------------------------------------------------------------------------
@@ -298,60 +339,92 @@ qpel_search.launches = 0
 # ---------------------------------------------------------------------------
 
 def search_level(cur: torch.Tensor, refs: torch.Tensor, src_vec,
-                 pixel_rate: int, penalty: bool) -> torch.Tensor:
-    """One pyramid level: cur (H, W), refs (R, H, W), src_vec (R, nbyc,
+                 pixel_rate: int, penalty: bool, ref_off: int = 0,
+                 row0: int = 0, full_h: int = 0,
+                 src_off: int = 0) -> torch.Tensor:
+    """One pyramid level: cur (H, W), refs (R, HR, W), src_vec (R, nbyc,
     nbxc, 2) coarser-level vectors in full-res pels or None.  Each block
     inherits the vector of the coarser block holding (c/2), divided by
     pixel_rate toward zero.  Returns (R, H//8, W//8, 2) int32 vectors in
-    full-res pels."""
+    full-res pels.  ref_off, row0, full_h: row shards (`fullpel_search`);
+    src_off: cur's first row in the rows of src_vec's plane, when src_vec
+    covers the whole frame and cur is a band."""
     H, W = cur.shape
     R = refs.shape[0]
     nby, nbx = H // 8, W // 8
-    v0 = inherit_vectors(src_vec, R, nby, nbx, pixel_rate, cur.device)
-    off = fullpel_search(cur, refs, v0, penalty)
+    v0 = inherit_vectors(src_vec, R, nby, nbx, pixel_rate, cur.device,
+                         src_off)
+    off = fullpel_search(cur, refs, v0, penalty, ref_off, row0, full_h)
     return (off * pixel_rate).reshape(R, nby, nbx, 2)
 
 
 def inherit_vectors(src_vec, R: int, nby: int, nbx: int, pixel_rate: int,
-                    device) -> torch.Tensor:
+                    device, src_off: int = 0) -> torch.Tensor:
     """(R, nby*nbx, 2) int32 start vectors of a level's blocks in its own
-    pels: the vector of the coarser block holding (c/2), divided by
-    pixel_rate toward zero; zero without a coarser level."""
+    pels: the vector of the coarser block holding ((c + src_off)/2),
+    divided by pixel_rate toward zero; zero without a coarser level."""
     if src_vec is None:
         return torch.zeros((R, nby * nbx, 2), dtype=_I32, device=device)
     cy, cx = _block_origins(nby, nbx, device)
-    pby = ((cy // 2) // 8).clamp(max=src_vec.shape[1] - 1)
+    pby = (((cy + src_off) // 2) // 8).clamp(max=src_vec.shape[1] - 1)
     pbx = ((cx // 2) // 8).clamp(max=src_vec.shape[2] - 1)
     v = src_vec[:, pby, pbx]
     return (v.sign() * (v.abs() // pixel_rate)).to(_I32).contiguous()
 
 
 def search_qpel(cur: torch.Tensor, refs: torch.Tensor,
-                fullpel_vec: torch.Tensor):
+                fullpel_vec: torch.Tensor, ref_off: int = 0, row0: int = 0,
+                full_h: int = 0):
     """(vectors (R, nby, nbx, 2) qpel, Bdiff (R, nby, nbx), best_pred (R,
     n, 8, 8) u8) from the full-pel vectors of level 0."""
     H, W = cur.shape
     R = refs.shape[0]
     nby, nbx = H // 8, W // 8
     vec, cost, pred = qpel_search(
-        cur, refs, fullpel_vec.reshape(R, nby * nbx, 2).contiguous())
+        cur, refs, fullpel_vec.reshape(R, nby * nbx, 2).contiguous(),
+        ref_off, row0, full_h)
     return (vec.reshape(R, nby, nbx, 2), cost.reshape(R, nby, nbx),
             pred.reshape(R, nby * nbx, 8, 8))
 
 
-def hierarchical_search(cur_pyr, ref_pyr):
+def hierarchical_search(cur_pyr, ref_pyr, cur_full2=None, row0: int = 0,
+                        full_h: int = 0, pad: int = 0):
     """cur_pyr: 5 planes (level l is (H>>l, W>>l)); ref_pyr: 5 stacked (R,
     H_l, W_l) reference levels.  Levels 4..1 (a level too small for one
-    8x8 block is skipped), level 0 at full pel, then quarter pel."""
+    8x8 block is skipped), level 0 at full pel, then quarter pel.
+
+    A row shard of a taller frame passes cur_full2, the frame's level-2
+    plane, its band's first row `row0`, the frame's height `full_h` and
+    the strips' halo `pad` (PAD_Y_FULL).  Levels 4, 3, 2 cannot be cut
+    into bands exactly (a band's 8-pel block grid leaves the frame's at
+    level l >= 2 unless the band starts on a multiple of 8 << l), and they
+    are small, so every rank searches them on the whole frame: levels 3
+    and 4 are derived from cur_full2 and ref_pyr[2..4] are whole levels.
+    Levels 1 and 0 and the quarter pel run on the band's rows:
+    cur_pyr[0..1] are the band's levels, ref_pyr[0..1] strips with
+    pad >> l halo rows above and below (parallel/tile.build_ref_strips),
+    and level 1 reads the whole-frame level-2 vectors at the band's global
+    rows.  The shard's vectors equal the whole-frame search's on its
+    blocks."""
+    if cur_full2 is None:
+        coarse = cur_pyr[2:]
+    else:
+        cur3 = downsample2(cur_full2)
+        coarse = (cur_full2, cur3, downsample2(cur3))
     vec = None
-    for lvl, rate in ((4, 16), (3, 8), (2, 4), (1, 2)):
-        h, w = cur_pyr[lvl].shape
-        if (w // 8) == 0 or (h // 8) == 0:
+    for lvl in (4, 3, 2, 1, 0):
+        cur_l = coarse[lvl - 2] if lvl >= 2 else cur_pyr[lvl]
+        h, w = cur_l.shape
+        if lvl and ((w // 8) == 0 or (h // 8) == 0):
             continue
-        vec = search_level(cur_pyr[lvl], ref_pyr[lvl], vec, rate,
-                           penalty=(rate < 4))
-    vec = search_level(cur_pyr[0], ref_pyr[0], vec, 1, penalty=True)
-    return search_qpel(cur_pyr[0], ref_pyr[0], vec)
+        band = lvl < 2            # the band's own rows (whole frame: all)
+        vec = search_level(cur_l, ref_pyr[lvl], vec, 1 << lvl,
+                           penalty=(lvl < 2),
+                           ref_off=(pad >> lvl) if band else 0,
+                           row0=(row0 >> lvl) if band else 0,
+                           full_h=(full_h >> lvl) if band else 0,
+                           src_off=(row0 >> 1) if lvl == 1 else 0)
+    return search_qpel(cur_pyr[0], ref_pyr[0], vec, pad, row0, full_h)
 
 
 # ---------------------------------------------------------------------------
@@ -359,15 +432,19 @@ def hierarchical_search(cur_pyr, ref_pyr):
 # ---------------------------------------------------------------------------
 
 def mc_predict_selected_uv(refs_u: torch.Tensor, refs_v: torch.Tensor,
-                           mvs: torch.Tensor, sel: torch.Tensor):
+                           mvs: torch.Tensor, sel: torch.Tensor,
+                           H2: int = 0, ref_off: int = 0):
     """U and V prediction from each MB's selected reference.
 
-    refs_u/refs_v (R, H2, W2) u8; mvs (mbc, 4, 2) quarter vectors in luma
+    refs_u/refs_v (R, HR, W2) u8; mvs (mbc, 4, 2) quarter vectors in luma
     qpel, read as 1/8 pel at half resolution; sel (mbc,) reference index.
     Each 4x4 block takes the vector of its MB quarter and is six-tap
     interpolated from a 9x9 clamped patch with its own taps (H pass, clip,
-    V pass, clip).  Returns (pred_u, pred_v), int32 (H2, W2)."""
-    R, H2, W2 = refs_u.shape
+    V pass, clip).  Returns (pred_u, pred_v), int32 (H2, W2).  A row shard
+    predicts its H2 rows (0: HR) from strips whose row ref_off is its
+    first row."""
+    R, HR, W2 = refs_u.shape
+    H2 = H2 or HR
     dev = refs_u.device
     nby, nbx = H2 // 4, W2 // 4
     b = torch.arange(nby * nbx, device=dev)
@@ -378,7 +455,7 @@ def mc_predict_selected_uv(refs_u: torch.Tensor, refs_v: torch.Tensor,
     ay = by * 32 + v[:, 1]
     planes = torch.cat([refs_u, refs_v])                            # (2R, ...)
     s = sel.long()[mb]
-    patch = _gather(planes, torch.stack([s, s + R]), (ay >> 3) - 2,
+    patch = _gather(planes, torch.stack([s, s + R]), (ay >> 3) - 2 + ref_off,
                     (ax >> 3) - 2, 9)                               # (2,n,9,9)
     taps = T.device_const(SIXTAP_FILTERS, _I32, dev)
     tx = taps[ax & 7][:, None, None, :]                             # (n,1,1,6)
@@ -457,8 +534,9 @@ def transform_mb_chroma(res_blocks, dc_q, ac_q):
 # the inter frame
 # ---------------------------------------------------------------------------
 
-def inter_body(y, u, v, states, ref_valid, quant, ssim_target: int = -1):
-    """Whole inter frame on one device.
+def inter_body(y, u, v, states, ref_valid, quant, ssim_target: int = -1,
+               shard=None):
+    """Whole inter frame on one device, or one row shard of it.
 
     y (H, W), u/v (H/2, W/2) u8 source planes (MB-aligned); states: three
     `ref_state` tuples (LAST, GOLDEN, ALTREF; an unused reference may be
@@ -479,14 +557,29 @@ def inter_body(y, u, v, states, ref_valid, quant, ssim_target: int = -1):
     vectors (x, y); cur_ssim (mbc,) i32; recon y, u, v u8; modes (mbc, 16)
     i8: the B_PRED modes of replaced MBs, zero elsewhere; replaced: 0-d i32
     count of replaced MBs), laid out as the JAX package lays them out;
-    modes and replaced are None with SSIM control off."""
+    modes and replaced are None with SSIM control off.
+
+    shard: None, or the row shard of a taller frame that y, u, v are (an
+    object with `row0` and `full_h`, the frame's first row of the band and
+    the frame's height, and the tile group's exchanges `all_gather_rows`
+    and `from_above`, parallel/tile.TileShard).  The states are then the
+    references' strips (parallel/tile.build_ref_strips), the search is
+    `hierarchical_search` in shard mode, chroma is predicted from its strips,
+    and the intra replacement takes its ghost rows and the winner flags of
+    the band above.  Every output covers the band's MBs only."""
     H, W = y.shape
     mbw, mbh = W // 16, H // 16
     mbc = mbw * mbh
     nby, nbx = H // 8, W // 8
     dev = y.device
     ref_pyr = [torch.stack([s[0][lvl] for s in states]) for lvl in range(5)]
-    vecs, diffs, best_pred = hierarchical_search(build_pyramid(y), ref_pyr)
+    cur_pyr = build_pyramid(y)
+    if shard is None:
+        vecs, diffs, best_pred = hierarchical_search(cur_pyr, ref_pyr)
+    else:
+        vecs, diffs, best_pred = hierarchical_search(
+            cur_pyr, ref_pyr, shard.all_gather_rows(cur_pyr[2]), shard.row0,
+            shard.full_h, PAD_Y_FULL)
 
     # reference selection: per MB the sum of its four 8x8 Bdiffs
     d = diffs.reshape(3, mbh, 2, mbw, 2).sum(dim=(2, 4), dtype=_I32) \
@@ -510,7 +603,8 @@ def inter_body(y, u, v, states, ref_valid, quant, ssim_target: int = -1):
     pred_y = _blocks8_to_plane(best_pred[sel_blk, blk], nby, nbx).to(_I32)
     pred_u, pred_v = mc_predict_selected_uv(
         torch.stack([s[1] for s in states]),
-        torch.stack([s[2] for s in states]), mvs, ref_sel)
+        torch.stack([s[2] for s in states]), mvs, ref_sel, H // 2,
+        0 if shard is None else PAD_C_FULL)
 
     res_y = _mb_blocks_luma(y.to(_I32) - pred_y, mbw, mbh)
     res_u = _mb_blocks_chroma(u.to(_I32) - pred_u, mbw, mbh)
@@ -561,7 +655,7 @@ def inter_body(y, u, v, states, ref_valid, quant, ssim_target: int = -1):
         (applied, b_sid, b_modes, b_lv_y, b_lv_u, b_lv_v, b_ry, b_ru, b_rv,
          cur_ssim) = intra_replace_device(
             y, u, v, ry, ru, rv, cur_ssim, y_dc, y_ac, uv_dc, uv_ac,
-            ssim_target, mbw, mbh)
+            ssim_target, mbw, mbh, shard)
         a1 = applied[:, None]
         a2 = applied[:, None, None]
         a3 = applied[:, None, None, None]

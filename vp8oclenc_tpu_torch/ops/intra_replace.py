@@ -24,8 +24,11 @@ The luma trial has two versions with one contract:
     csrc/intra.cu, for CPU tensors it takes the plain version.
 The chroma trial and the controller around them are plain PyTorch.
 
-Row-sharded frames (a ghost row and winner flags from the shard above)
-belong to the multi-GPU layer and are not ported yet.
+A row shard of a taller frame (the multi-GPU layer's tile ranks) needs
+two things from the shard above: its last recon row of each plane (the
+ghost row its first MB row predicts from) and its last MB row's winner
+flags (for the suppression rule); the frame-top shard keeps the all-127
+row and has no winners above.
 """
 from __future__ import annotations
 
@@ -63,18 +66,24 @@ def mb_patches_to_chroma_blocks(p: torch.Tensor) -> torch.Tensor:
         .reshape(mbc, 4, 4, 4)
 
 
-def _bordered_top_rows(recon: torch.Tensor, size: int, rpad: int):
+def _bordered_top_rows(recon: torch.Tensor, size: int, rpad: int,
+                       ghost=None):
     """(mbh, 1 + W + rpad) rows above each MB row of a u8 plane: [corner,
     row, last pixel x rpad].  Above the frame everything is 127; below it
-    the corner is 129."""
+    the corner is 129.  ghost: None at the frame top, else the (W,) row
+    above the plane (the last row of the row shard above)."""
     H, W = recon.shape
     above = recon[size - 1:H - 1:size]                        # (mbh - 1, W)
+    if ghost is not None:
+        above = torch.cat([ghost[None].to(_U8), above])
     n = above.shape[0]
-    first = torch.full((1, 1 + W + rpad), 127, dtype=_U8,
-                       device=recon.device)
     rest = torch.cat([torch.full((n, 1), 129, dtype=_U8,
                                  device=recon.device),
                       above, above[:, -1:].expand(n, rpad)], dim=1)
+    if ghost is not None:
+        return rest
+    first = torch.full((1, 1 + W + rpad), 127, dtype=_U8,
+                       device=recon.device)
     return torch.cat([first, rest], dim=0)
 
 
@@ -88,24 +97,28 @@ def _bordered_left_cols(recon: torch.Tensor, size: int, mbw: int, mbh: int):
     return cols.reshape(mbh, size, mbw).permute(0, 2, 1).reshape(-1, size)
 
 
-def _frozen_luma_neighbors(recon_y: torch.Tensor, mbw: int, mbh: int):
+def _frozen_luma_neighbors(recon_y: torch.Tensor, mbw: int, mbh: int,
+                           ghost=None):
     """Frozen per-MB neighbours from the pre-replacement luma recon (u8).
 
     Returns (ftop (mbc, 21) u8 = [P, A(x)..A(x+19)], fleft (mbc, 16) u8).
     Border rules: above row 127, left column 129, above-left 127 at the
     frame top and 129 below it; the above-right pixels of the MB's last
     block column come from the row above the MB, the row's last pixel
-    replicated four times at the frame's right edge."""
-    top = _bordered_top_rows(recon_y, 16, 4)                  # (mbh, W + 5)
+    replicated four times at the frame's right edge.  ghost: the row above
+    a row shard (`_bordered_top_rows`)."""
+    top = _bordered_top_rows(recon_y, 16, 4, ghost)           # (mbh, W + 5)
     ftop = top.unfold(1, 21, 16)                              # (mbh, mbw, 21)
     return (ftop.reshape(-1, 21).contiguous(),
             _bordered_left_cols(recon_y, 16, mbw, mbh).contiguous())
 
 
-def _frozen_chroma_neighbors(recon_c: torch.Tensor, mbw: int, mbh: int):
+def _frozen_chroma_neighbors(recon_c: torch.Tensor, mbw: int, mbh: int,
+                             ghost=None):
     """(ctop (mbc, 8), cleft (mbc, 8), ctl (mbc,)) u8 of one chroma plane:
-    top 127, left 129, top-left 127 at the frame top and 129 at its left."""
-    top = _bordered_top_rows(recon_c, 8, 0)                   # (mbh, W2 + 1)
+    top 127, left 129, top-left 127 at the frame top and 129 at its left;
+    ghost as in `_frozen_luma_neighbors`."""
+    top = _bordered_top_rows(recon_c, 8, 0, ghost)            # (mbh, W2 + 1)
     ctop = top[:, 1:].unfold(1, 8, 8)                         # (mbh, mbw, 8)
     ctl = top[:, 0:-1:8]                                      # (mbh, mbw)
     return (ctop.reshape(-1, 8), _bordered_left_cols(recon_c, 8, mbw, mbh),
@@ -241,7 +254,7 @@ def _trial_chroma(c_mb, ctop, cleft, ctl, dc_q: int, ac_q: int):
 
 def intra_replace_device(y, u, v, recon_y, recon_u, recon_v, cur_ssim,
                          seg_y_dc, seg_y_ac, seg_uv_dc, seg_uv_ac,
-                         ssim_target: int, mbw: int, mbh: int):
+                         ssim_target: int, mbw: int, mbh: int, shard=None):
     """The whole batched controller on one device.
 
     y, u, v and recon_*: whole u8 planes, the recon frozen as the segment
@@ -250,11 +263,17 @@ def intra_replace_device(y, u, v, recon_y, recon_u, recon_v, cur_ssim,
     threshold.  Returns (applied (mbc,) bool, sid (mbc,) i32, modes
     (mbc, 16), lv_y (mbc, 16, 16), lv_u, lv_v (mbc, 4, 16), rec_y
     (mbc, 16, 16), rec_u, rec_v (mbc, 8, 8), new_cur (mbc,) i32); the
-    per-MB entries are meaningful where `applied` is set."""
+    per-MB entries are meaningful where `applied` is set.
+
+    shard: None, or the row shard the planes are (ops/inter.inter_body);
+    its `from_above(t)` returns the shard above's t, or None at the frame
+    top."""
     mbc = mbw * mbh
-    ftop, fleft = _frozen_luma_neighbors(recon_y, mbw, mbh)
-    un = _frozen_chroma_neighbors(recon_u, mbw, mbh)
-    vn = _frozen_chroma_neighbors(recon_v, mbw, mbh)
+    ghosts = (None, None, None) if shard is None else \
+        shard.from_above([p[-1] for p in (recon_y, recon_u, recon_v)])
+    ftop, fleft = _frozen_luma_neighbors(recon_y, mbw, mbh, ghosts[0])
+    un = _frozen_chroma_neighbors(recon_u, mbw, mbh, ghosts[1])
+    vn = _frozen_chroma_neighbors(recon_v, mbw, mbh, ghosts[2])
     y_mb = _plane_mb(y, 16).contiguous()
     u_mb = _plane_mb(u, 8)
     v_mb = _plane_mb(v, 8)
@@ -284,7 +303,11 @@ def intra_replace_device(y, u, v, recon_y, recon_u, recon_v, cur_ssim,
 
     # suppression: a winner is applied only when none of the 4 neighbour MBs
     # feeding its prediction (left, above-left, above, above-right) also won
-    pw = torch.nn.functional.pad(win.reshape(mbh, mbw), (1, 1, 1, 0))
+    top_win = None if shard is None else shard.from_above([win[-mbw:]])[0]
+    if top_win is None:
+        top_win = torch.zeros_like(win[:mbw])
+    pw = torch.nn.functional.pad(torch.cat([top_win, win]).reshape(
+        mbh + 1, mbw), (1, 1))
     conflict = pw[1:, :-2] | pw[:-1, :-2] | pw[:-1, 1:-1] | pw[:-1, 2:]
     applied = win & ~conflict.reshape(-1)
     new_cur = torch.where(applied, cur, cur_ssim)

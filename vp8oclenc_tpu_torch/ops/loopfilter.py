@@ -17,6 +17,15 @@ reads the unfiltered planes and writes new ones.  It orders the MBs by a
 weaker rule than the diagonal (MB row r takes MB bx once row r-1 is past
 bx+1); tests/test_torch_wavefront_order.py holds that rule against the
 plain version through `filter_step`.
+
+Band mode (`filter_band_plain`, `filter_band`) filters the MB rows of one
+row shard of a taller frame: given the 4 lines above the band from the
+shard above, it filters the band's first MB row's top edge too and
+returns, besides the band, the 3 of those lines that the edge changed, for
+the shard above to write back.  The shard above's own filtering needs
+nothing of the band, so its lines are final before the band starts, and
+bands filtered one after the other down the frame equal the whole-plane
+filter.  Without a halo the band is a frame.
 """
 from __future__ import annotations
 
@@ -120,18 +129,28 @@ def _filter_edges(S, n: int, y0, x0, vertical: bool, off: int, kind: str,
 
 
 def filter_state(ry, ru, rv, seg_of_mb, inner_mask, levels, mbe, sbe, intr,
-                 hev):
+                 hev, halo=None):
     """The working state of a frame's filter: the planes as int32 in the
     -128..127 domain (filtered in place by `filter_step`) with their MB
     sizes, and the per-MB and per-segment parameters on the planes'
-    device."""
+    device.  halo: None for a frame, or a band's (4, W) lines above each
+    plane (Y, U, V); they are kept as the bottom of an MB row above the
+    band's first."""
     dev = ry.device
-    planes = [(p.to(_I32) - 128, 16 if k == 0 else 8)
-              for k, p in enumerate((ry, ru, rv))]
+    planes = []
+    for k, p in enumerate((ry, ru, rv)):
+        n = 16 if k == 0 else 8
+        S = p.to(_I32) - 128
+        if halo is not None:
+            S = torch.cat([torch.zeros((n - 4, S.shape[1]), dtype=_I32,
+                                       device=dev),
+                           halo[k].to(device=dev, dtype=_I32) - 128, S])
+        planes.append((S, n))
     seg_of_mb = seg_of_mb.to(device=dev, dtype=torch.long)
     inner_mask = inner_mask.to(device=dev, dtype=torch.bool)
     lim = [t.to(device=dev, dtype=_I32) for t in (levels, mbe, sbe, intr, hev)]
-    return planes, seg_of_mb, inner_mask, lim, ry.shape[1] // 16
+    return (planes, seg_of_mb, inner_mask, lim, ry.shape[1] // 16,
+            int(halo is not None))
 
 
 def filter_step(state, by, bx) -> None:
@@ -140,12 +159,12 @@ def filter_step(state, by, bx) -> None:
     pixels; the caller keeps the decoder's dependencies: before (by, bx)
     come (by, bx-1) and (by-1, bx+1) (whose left edge writes into
     (by-1, bx)), and through them everything above and to the left."""
-    planes, seg_of_mb, inner_mask, lim, mbw = state
+    planes, seg_of_mb, inner_mask, lim, mbw, above = state
     mbn = by * mbw + bx
     sid = seg_of_mb[mbn]
     on = lim[0][sid] > 0
     left = on & (bx > 0)
-    top = on & (by > 0)
+    top = on & (by + above > 0)
     inner = on & inner_mask[mbn]
     for S, n in planes:
         def edges(sel, vertical, off, kind):
@@ -153,8 +172,8 @@ def filter_step(state, by, bx) -> None:
                 return
             s = sid[sel]
             e = lim[1][s] if kind == "mb" else lim[2][s]
-            _filter_edges(S, n, by[sel] * n, bx[sel] * n, vertical, off,
-                          kind, (e, lim[3][s], lim[4][s]))
+            _filter_edges(S, n, (by[sel] + above) * n, bx[sel] * n,
+                          vertical, off, kind, (e, lim[3][s], lim[4][s]))
         edges(left, True, 0, "mb")
         for off in range(4, n, 4):
             edges(inner, True, off, "b")
@@ -164,9 +183,16 @@ def filter_step(state, by, bx) -> None:
 
 
 def filter_result(state):
-    """The u8 planes of a filter state."""
-    return tuple((S + 128).clamp(0, 255).to(torch.uint8)
-                 for S, _ in state[0])
+    """The u8 planes of a filter state (the band's, without a halo)."""
+    return tuple((S[n * state[5]:] + 128).clamp(0, 255).to(torch.uint8)
+                 for S, n in state[0])
+
+
+def filter_writeback(state):
+    """The 3 halo lines of each plane that a band's top edge changed: the
+    lines above the band's first row, nearest last."""
+    return tuple((S[n - 3:n] + 128).clamp(0, 255).to(torch.uint8)
+                 for S, n in state[0])
 
 
 def filter_planes_plain(ry, ru, rv, seg_of_mb, inner_mask, levels, mbe, sbe,
@@ -177,17 +203,30 @@ def filter_planes_plain(ry, ru, rv, seg_of_mb, inner_mask, levels, mbe, sbe,
     subblock edges; levels/mbe/sbe/intr/hev (4,) per-segment filter level,
     MB-edge limit, subblock-edge limit, interior limit and HEV threshold.
     An MB whose segment level is 0 is skipped.  Returns new u8 planes."""
+    return filter_band_plain(ry, ru, rv, None, seg_of_mb, inner_mask, levels,
+                             mbe, sbe, intr, hev)[0]
+
+
+def filter_band_plain(ry, ru, rv, halo, seg_of_mb, inner_mask, levels, mbe,
+                      sbe, intr, hev):
+    """Loop filter of a band of MB rows (contract of `filter_planes_plain`
+    for the band's planes and per-MB parameters).  halo: None for a band at
+    the frame top, else the (4, W) final lines above each plane (Y, U, V)
+    from the band above.  Returns (the band's filtered u8 planes, the 3
+    lines of each plane nearest the band that its top edge changed, None
+    without a halo)."""
     H, W = ry.shape
     mbh, mbw = H // 16, W // 16
     state = filter_state(ry, ru, rv, seg_of_mb, inner_mask, levels, mbe, sbe,
-                         intr, hev)
+                         intr, hev, halo)
     bands = torch.arange(mbh, device=ry.device)
     D = (mbw - 1) + 2 * (mbh - 1) + 1
     for d in range(D):
         lo = max(0, (d - (mbw - 1) + 1) // 2)
         by = bands[lo:min(mbh - 1, d // 2) + 1]
         filter_step(state, by, d - 2 * by)
-    return filter_result(state)
+    return filter_result(state), \
+        None if halo is None else filter_writeback(state)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -205,6 +244,35 @@ def filter_planes(ry, ru, rv, seg_of_mb, inner_mask, levels, mbe, sbe, intr,
     if ry.device.type == "cpu":
         return filter_planes_plain(ry, ru, rv, seg_of_mb, inner_mask, levels,
                                    mbe, sbe, intr, hev)
+    return _launch(ry, ru, rv, None, seg_of_mb, inner_mask, levels, mbe, sbe,
+                   intr, hev)[0]
+
+
+filter_planes.launches = 0
+
+
+def filter_band(ry, ru, rv, halo, seg_of_mb, inner_mask, levels, mbe, sbe,
+                intr, hev):
+    """Band loop filter (contract of `filter_band_plain`): the
+    csrc/loopfilter.cu kernel for CUDA planes, the plain version for CPU
+    planes.  Counted in `filter_planes.launches` and in
+    `filter_band.launches`."""
+    if ry.device.type == "cpu":
+        return filter_band_plain(ry, ru, rv, halo, seg_of_mb, inner_mask,
+                                 levels, mbe, sbe, intr, hev)
+    out = _launch(ry, ru, rv, halo, seg_of_mb, inner_mask, levels, mbe, sbe,
+                  intr, hev)
+    filter_band.launches += 1
+    return out
+
+
+filter_band.launches = 0
+
+
+def _launch(ry, ru, rv, halo, seg_of_mb, inner_mask, levels, mbe, sbe, intr,
+            hev):
+    """One launch of the row-pipelined kernel on a frame (halo None) or a
+    band; returns (planes, write-back lines or None)."""
     dev = ry.device
     for t, nm in ((ry, "ry"), (ru, "ru"), (rv, "rv")):
         if t.device != dev or t.dtype != torch.uint8 or t.dim() != 2:
@@ -224,18 +292,26 @@ def filter_planes(ry, ru, rv, seg_of_mb, inner_mask, levels, mbe, sbe, intr,
         raise ValueError("filter_planes: bad per-MB or per-segment shapes")
     src = [_aligned(t) for t in (ry, ru, rv)]
     out = [torch.empty_like(t) for t in src]
+    hal = wb = [None] * 3
+    if halo is not None:
+        hal = [_aligned(t) for t in halo]
+        if [tuple(t.shape) for t in hal] != [(4, W), (4, W // 2),
+                                             (4, W // 2)] \
+                or any(t.device != dev or t.dtype != torch.uint8
+                       for t in hal):
+            raise ValueError("filter_band: the halo must be 4 uint8 lines "
+                             "of each plane's width on the planes' device")
+        wb = [torch.empty((3, t.shape[1]), dtype=torch.uint8, device=dev)
+              for t in hal]
     # the kernel's 3 progress counters per MB row and its row ticket: a
     # fresh zeroed buffer per call (one fill on the caller's stream, no
     # host sync), so frames in flight never share counters
     sync = torch.zeros(3 * (H // 16) + 1, dtype=torch.int32, device=dev)
-    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    p = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     rc = cuda_build.library("loopfilter").vp8_loop_filter(
-        *map(p, src), *map(p, out), p(seg), p(inner), p(lf), p(sync),
-        W // 16, H // 16,
+        *map(p, src), *map(p, out), *map(p, hal), *map(p, wb), p(seg),
+        p(inner), p(lf), p(sync), W // 16, H // 16,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     cuda_build.check(rc, "vp8_loop_filter")
     filter_planes.launches += 1
-    return tuple(out)
-
-
-filter_planes.launches = 0
+    return tuple(out), None if halo is None else tuple(wb)

@@ -13,6 +13,7 @@ snapshot taken before the frame.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 
 import numpy as np
@@ -23,6 +24,7 @@ from vp8oclenc_tpu_torch.entropy.boolcoder import pack_bools
 from vp8oclenc_tpu_torch.entropy.header import encode_frame_header
 from vp8oclenc_tpu_torch.io.y4m import Frame, pad_frame
 from vp8oclenc_tpu_torch.ops.backend import TorchBackend
+from vp8oclenc_tpu_torch.pipeline.control import RefSchedule
 from vp8oclenc_tpu_torch.pipeline.segments import SegmentData, prepare_segments
 from vp8oclenc_tpu_torch.tables import ARE4X4, INTRA_SEGMENT, LAST
 
@@ -84,36 +86,19 @@ def _own_padded(frame: Frame) -> Frame:
                                      (frame.y, frame.u, frame.v))))
 
 
-class Encoder:
-    """Single-stream VP8 encoder on one device ("cuda" unless the caller
-    asks for "cpu")."""
+class EntropyCoder:
+    """The host half of a frame: tokens, probabilities, boolean-coded
+    partitions, the frame header and the assembled payload.  It holds no
+    device state, so the multi-GPU layer's lane leaders run it on frames
+    assembled from their tile ranks' wire buffers."""
 
-    def __init__(self, cfg: EncoderConfig, width: int, height: int,
-                 device=None) -> None:
+    def __init__(self, cfg: EncoderConfig, width: int, height: int) -> None:
         self.cfg = cfg
         self.width = width
         self.height = height
-        self.wrk_w = (width + 15) & ~15
-        self.wrk_h = (height + 15) & ~15
-        self.mbw = self.wrk_w // 16
-        self.mbh = self.wrk_h // 16
+        self.mbw = ((width + 15) & ~15) // 16
+        self.mbh = ((height + 15) & ~15) // 16
         self.mbc = self.mbw * self.mbh
-        self.stats = EncoderStats()
-        self.last_frame_stats = None
-        # frame state
-        self.frame_number = 0
-        self.frames_until_key = 1
-        self.frames_until_altref = 2
-        self.last_key_detect = 0
-        self._scene_holdover = False
-        self.prev_is_golden = False
-        self.prev_is_altref = False
-        self.golden_frame_number = -1
-        self.altref_frame_number = -1
-        self.recon = None                         # LAST (y, u, v), lazy
-        self.last_u = None                        # previous source chroma
-        self.last_v = None
-        self.backend = TorchBackend(cfg, self.wrk_w, self.wrk_h, device)
         self._pool = None              # lazy per-partition packing pool
 
     def _executor(self):
@@ -129,51 +114,15 @@ class Encoder:
             self._pool.shutdown(wait=True)
             self._pool = None
 
-    def _scene_change(self, u: np.ndarray, v: np.ndarray) -> bool:
-        if self.last_u is None:
-            return False
-        change, self.last_key_detect, self._scene_holdover = \
-            scene_change_step(self.frame_number, self.last_key_detect,
-                              self._scene_holdover, self.last_u, self.last_v,
-                              u, v)
-        return change
-
-    # ---- keyframe path ----
-    def _encode_key(self, y, u, v, seg: SegmentData,
-                    yuv_dev=None) -> FrameData:
-        self.frames_until_key = self.cfg.gop_size
-        self.frames_until_altref = self.cfg.altref_range
-        self.last_key_detect = self.frame_number
-        self.golden_frame_number = self.frame_number
-        self.altref_frame_number = self.frame_number
-
-        dev_out, self.recon = self.backend.encode_intra_frame(
-            y, u, v, seg, yuv_dev=yuv_dev)
-        mbc = self.mbc
-        fd = FrameData(
-            mbw=self.mbw, mbh=self.mbh, is_key=True, is_golden=True,
-            is_altref=True, levels=None,            # filled by finalize
-            parts=np.full(mbc, ARE4X4, dtype=np.int32),
-            segment_ids=np.full(mbc, INTRA_SEGMENT, dtype=np.int32),
-            modes=None,
-            is_inter=np.zeros(mbc, dtype=bool),
-            ref_frame=np.full(mbc, LAST, dtype=np.int32),
-            mvs=np.zeros((mbc, 4, 2), dtype=np.int16))
-        fd.device_outputs = dev_out
-        return fd
-
-    # ---- inter path ----
-    def _encode_inter(self, y, u, v, seg, is_golden, is_altref,
-                      yuv_dev=None):
-        return self.backend.encode_inter_frame(self, y, u, v, seg, is_golden,
-                                               is_altref, yuv_dev=yuv_dev)
-
-    # ---- entropy + assembly ----
-    def _finish_frame(self, fd: FrameData, seg: SegmentData) -> bytes:
+    def finish(self, fd: FrameData, seg: SegmentData,
+               require_native: bool) -> bytes:
+        """The frame's payload.  require_native: the encode runs beside a
+        card, where the Python tokenizer may not stand in for the native
+        packer."""
         cfg = self.cfg
         from vp8oclenc_tpu_torch.native import packer as native
         use_native = native.available()
-        if not use_native and self.backend.device.type == "cuda":
+        if not use_native and require_native:
             # the Python tokenizer is the CPU path's stand-in; beside a
             # card it would hide a broken build behind a far slower stage
             raise RuntimeError(
@@ -213,11 +162,6 @@ class Encoder:
                     partitions.append(pack_bools(p, b))
 
         header = encode_frame_header(fd, seg, cfg, self.width, self.height)
-        self.last_frame_stats = {
-            "is_key": fd.is_key, "replaced": fd.replaced,
-            "ssim_min_fx": getattr(fd, "ssim_min_fx", None),
-            "ssim_sum_fx": getattr(fd, "ssim_sum_fx", None)}
-
         out = bytearray(header)
         for part in partitions[:-1]:
             n = len(part)
@@ -225,6 +169,85 @@ class Encoder:
         for part in partitions:
             out += part
         return bytes(out)
+
+
+class Encoder:
+    """Single-stream VP8 encoder on one device ("cuda" unless the caller
+    asks for "cpu")."""
+
+    def __init__(self, cfg: EncoderConfig, width: int, height: int,
+                 device=None) -> None:
+        self.cfg = cfg
+        self.width = width
+        self.height = height
+        self.wrk_w = (width + 15) & ~15
+        self.wrk_h = (height + 15) & ~15
+        self.mbw = self.wrk_w // 16
+        self.mbh = self.wrk_h // 16
+        self.mbc = self.mbw * self.mbh
+        self.stats = EncoderStats()
+        self.last_frame_stats = None
+        # frame state
+        self.frame_number = 0
+        self.frames_until_key = 1
+        self.last_key_detect = 0
+        self._scene_holdover = False
+        self.refs = RefSchedule(cfg.altref_range)  # GOLDEN/ALTREF schedule
+        self.recon = None                         # LAST (y, u, v), lazy
+        self.last_u = None                        # previous source chroma
+        self.last_v = None
+        self.backend = TorchBackend(cfg, self.wrk_w, self.wrk_h, device)
+        self.entropy = EntropyCoder(cfg, width, height)
+
+    def close(self) -> None:
+        """Shut down the packing pool (idempotent)."""
+        self.entropy.close()
+
+    def _scene_change(self, u: np.ndarray, v: np.ndarray) -> bool:
+        if self.last_u is None:
+            return False
+        change, self.last_key_detect, self._scene_holdover = \
+            scene_change_step(self.frame_number, self.last_key_detect,
+                              self._scene_holdover, self.last_u, self.last_v,
+                              u, v)
+        return change
+
+    # ---- keyframe path ----
+    def _encode_key(self, y, u, v, seg: SegmentData,
+                    yuv_dev=None) -> FrameData:
+        self.frames_until_key = self.cfg.gop_size
+        self.last_key_detect = self.frame_number
+
+        dev_out, self.recon = self.backend.encode_intra_frame(
+            y, u, v, seg, yuv_dev=yuv_dev)
+        mbc = self.mbc
+        fd = FrameData(
+            mbw=self.mbw, mbh=self.mbh, is_key=True, is_golden=True,
+            is_altref=True, levels=None,            # filled by finalize
+            parts=np.full(mbc, ARE4X4, dtype=np.int32),
+            segment_ids=np.full(mbc, INTRA_SEGMENT, dtype=np.int32),
+            modes=None,
+            is_inter=np.zeros(mbc, dtype=bool),
+            ref_frame=np.full(mbc, LAST, dtype=np.int32),
+            mvs=np.zeros((mbc, 4, 2), dtype=np.int16))
+        fd.device_outputs = dev_out
+        return fd
+
+    # ---- inter path ----
+    def _encode_inter(self, y, u, v, seg, is_golden, is_altref,
+                      yuv_dev=None):
+        return self.backend.encode_inter_frame(self, y, u, v, seg, is_golden,
+                                               is_altref, yuv_dev=yuv_dev)
+
+    # ---- entropy + assembly ----
+    def _finish_frame(self, fd: FrameData, seg: SegmentData) -> bytes:
+        out = self.entropy.finish(fd, seg,
+                                  self.backend.device.type == "cuda")
+        self.last_frame_stats = {
+            "is_key": fd.is_key, "replaced": fd.replaced,
+            "ssim_min_fx": getattr(fd, "ssim_min_fx", None),
+            "ssim_sum_fx": getattr(fd, "ssim_sum_fx", None)}
+        return out
 
     def encode_frame(self, frame: Frame) -> bytes:
         """Sequential encode of one frame (self.recon is this frame's)."""
@@ -309,24 +332,25 @@ class Encoder:
             self.stats.scene_changes_by_replaced += 1
         return reason
 
-    _SNAPSHOT = ("frame_number", "frames_until_key", "frames_until_altref",
-                 "last_key_detect", "_scene_holdover", "prev_is_golden",
-                 "prev_is_altref", "golden_frame_number",
-                 "altref_frame_number", "last_u", "last_v", "recon")
+    _SNAPSHOT = ("frame_number", "frames_until_key", "last_key_detect",
+                 "_scene_holdover", "last_u", "last_v", "recon")
     _BACKEND_SNAPSHOT = ("last", "last_state", "golden", "golden_state",
                          "altref", "altref_state")
 
     def _snapshot_state(self):
         """Counters, detector state and the backend's references before a
         frame.  The references are device tensors that later frames replace
-        and never write into, so holding them is enough."""
+        and never write into, so holding them is enough; the reference
+        schedule is copied."""
         return ([getattr(self, k) for k in self._SNAPSHOT],
+                copy.copy(self.refs),
                 [getattr(self.backend, k) for k in self._BACKEND_SNAPSHOT])
 
     def _restore_state(self, snap) -> None:
         for k, val in zip(self._SNAPSHOT, snap[0]):
             setattr(self, k, val)
-        for k, val in zip(self._BACKEND_SNAPSHOT, snap[1]):
+        self.refs = copy.copy(snap[1])
+        for k, val in zip(self._BACKEND_SNAPSHOT, snap[2]):
             setattr(self.backend, k, val)
 
     def _redo_as_key(self, fd: FrameData):
@@ -344,7 +368,6 @@ class Encoder:
             snap = self._snapshot_state()
 
         self.frames_until_key -= 1
-        self.frames_until_altref -= 1
         is_key = self.frames_until_key < 1 or force_key
         if force_key:
             # replay the detector's side effects exactly as the discarded
@@ -355,9 +378,7 @@ class Encoder:
             is_key = True
 
         is_golden = is_key
-        is_altref = (self.frames_until_altref < 1) or is_key
-        if is_altref:
-            self.frames_until_altref = self.cfg.altref_range
+        is_altref = self.refs.next_is_altref(is_key)
 
         seg = prepare_segments(self.cfg, y, is_key, is_altref)
         if is_key:
@@ -370,18 +391,16 @@ class Encoder:
             fd.src_pre = (p, yuv_dev)
 
         self.backend.promote_refs(is_golden, is_altref)
-        if is_golden:
-            self.golden_frame_number = self.frame_number
-        if is_altref:
-            self.altref_frame_number = self.frame_number
-        self.prev_is_golden = is_golden
-        self.prev_is_altref = is_altref
+        self.refs.coded(self.frame_number, is_golden, is_altref)
         self.last_u = u.copy()
         self.last_v = v.copy()
         self.frame_number += 1
         return fd, seg
 
     # ---- checkpoint / resume (the JAX package's dict format) ----
+    _REFS_KEYS = ("frames_until_altref", "prev_is_golden", "prev_is_altref",
+                  "golden_frame_number", "altref_frame_number")
+
     def checkpoint(self) -> dict:
         """Serializable encoder state at a frame boundary: counters,
         detector state and, inside a GOP, the three reference frames.  At a
@@ -389,13 +408,9 @@ class Encoder:
         st = {
             "frame_number": self.frame_number,
             "frames_until_key": self.frames_until_key,
-            "frames_until_altref": self.frames_until_altref,
             "last_key_detect": self.last_key_detect,
             "scene_holdover": self._scene_holdover,
-            "prev_is_golden": self.prev_is_golden,
-            "prev_is_altref": self.prev_is_altref,
-            "golden_frame_number": self.golden_frame_number,
-            "altref_frame_number": self.altref_frame_number,
+            **{k: getattr(self.refs, k) for k in self._REFS_KEYS},
             "last_u": None if self.last_u is None else self.last_u.copy(),
             "last_v": None if self.last_v is None else self.last_v.copy(),
         }
@@ -412,13 +427,10 @@ class Encoder:
         package): the stream continues byte-identically."""
         self.frame_number = st["frame_number"]
         self.frames_until_key = st["frames_until_key"]
-        self.frames_until_altref = st["frames_until_altref"]
         self.last_key_detect = st["last_key_detect"]
         self._scene_holdover = st["scene_holdover"]
-        self.prev_is_golden = st["prev_is_golden"]
-        self.prev_is_altref = st["prev_is_altref"]
-        self.golden_frame_number = st["golden_frame_number"]
-        self.altref_frame_number = st["altref_frame_number"]
+        self.refs = RefSchedule(self.cfg.altref_range,
+                                **{k: st[k] for k in self._REFS_KEYS})
         self.last_u = st["last_u"]
         self.last_v = st["last_v"]
         if st.get("last") is None:
