@@ -76,7 +76,18 @@ Phases (any failure exits non-zero before the result line):
      summed over them) must show every kernel of the path, the searches
      and the filter in their shard and band modes; fps is logged as that
      of ranks sharing one card, not a scaling figure;
-  11. a `kernels` JSON line (each kernel with its launches on the
+  11. quality: the `full_1080p_q12-40` row of bench_quality.json
+     reproduced through tools/quality_cuda.run_config on the card
+     (synth_sequence seed 0, 8 frames of 1920x1080, qi 12..40,
+     gop_size=100, altref_range=5, ssim_target=0.93: a keyframe, inter
+     frames over three references and the SSIM controller, so all six
+     kernels run, counters as in 4); its kbps, PSNR and SSIM equal to the
+     row at the row's rounding; frames 0-2 decoded by the port's decoder
+     (vp8oclenc_tpu_torch/decoder), Y, U and V bit-exact against the
+     card's recon; then a 96x80 default-GOP stream through the spec
+     backend (the numpy oracle) byte-identical to the card's; a
+     `quality` JSON line;
+  12. a `kernels` JSON line (each kernel with its launches on the
      multi-rank path and, for the three with one, its shard or band
      mode's time, bound and launches), the nvidia-smi line, and as the
      last line {"ok": true, "device": {...}}.
@@ -119,6 +130,8 @@ SSIM_REGIONS = 200            # of 32x32: 800 MBs of 8160, under a sixth
 REDO_CFG = dict(qi_min=95, qi_max=127, gop_size=150, ssim_target=0.985)
 N_REDO_FRAMES, REDO_AT = 5, 2
 N_MULTI_FRAMES, N_MULTI_SSIM_FRAMES = 10, 5   # multi-rank encodes
+N_QUALITY_DECODED = 3         # the keyframe and two inter frames
+N_SPEC_FRAMES = 5
 
 # integer operations per unit of work, counted from the kernels' arithmetic
 # (each add, multiply, shift, compare, select, abs, clamp and store counts
@@ -1400,6 +1413,78 @@ def phase_multirank(dev):
     return total
 
 
+def phase_quality(dev):
+    """The 1080p quality row of bench_quality.json on the card, decoded by
+    the port's decoder, and a small stream of the spec backend held against
+    the card's.  Returns the `quality` record."""
+    from vp8oclenc_tpu_torch.config import EncoderConfig
+    from vp8oclenc_tpu_torch.pipeline.encoder import Encoder
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tools"))
+    import quality_cuda
+
+    name, w, h, n, cfg = quality_cuda.HD1080
+    with open(os.path.join(root, "bench_quality.json")) as fh:
+        want = next(r for r in json.load(fh)["hd_rows"]
+                    if r["config"] == name)
+    frames = quality_cuda.synth_sequence(w, h, n, seed=0)
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    spent = {}
+    t0 = time.monotonic()
+    got = quality_cuda.run_config(name, cfg, frames, w, h, device=dev,
+                                  decode_frames=N_QUALITY_DECODED,
+                                  timings=spent)
+    wall = time.monotonic() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"  {name}: {n} frames {w}x{h} in {wall:.1f} s (encode "
+        f"{spent['encode_s']:.2f} s, decode of {spent['decoded']} frames "
+        f"{spent['decode_s']:.1f} s, metrics {spent['metrics_s']:.2f} s); "
+        f"launches {json.dumps(launches)}")
+    keys = ("kbps", "psnr", "ssim")
+    measured = {k: got[k] for k in keys}
+    recorded = {k: want[k] for k in keys}
+    log(f"  measured {json.dumps(measured)}, recorded {json.dumps(recorded)}")
+    if spent["decoded"] != N_QUALITY_DECODED:
+        raise AssertionError(f"{spent['decoded']} frames decoded")
+    for k in keys:
+        if got[k] != want[k]:
+            raise AssertionError(f"{name}: {k} {got[k]} differs from the "
+                                 f"recorded {want[k]}")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"{k} was never launched on the quality "
+                                 f"stream")
+
+    sw, sh = 96, 80
+    small = quality_cuda.synth_sequence(sw, sh, N_SPEC_FRAMES, seed=0)
+    spec_cfg = dict(qi_min=10, qi_max=40)       # default GOP
+    t1 = time.monotonic()
+    card = Encoder(EncoderConfig(**spec_cfg), sw, sh, device=dev)
+    on_card = list(card.encode_frames(small))
+    card.close()
+    spec = Encoder(EncoderConfig(**spec_cfg), sw, sh, backend="spec")
+    on_host = list(spec.encode_frames(small))
+    spec.close()
+    if on_card != on_host:
+        raise AssertionError("the spec backend's 96x80 stream differs from "
+                             "the card's")
+    n_inter = sum(p[0] & 1 for p in on_host)
+    log(f"  spec backend: {N_SPEC_FRAMES} frames {sw}x{sh} default GOP "
+        f"({n_inter} inter) byte-identical to the card's "
+        f"({sum(map(len, on_host))} bytes, {time.monotonic() - t1:.1f} s)")
+    if n_inter != N_SPEC_FRAMES - 1:
+        raise AssertionError(f"only {n_inter} inter frames in the spec "
+                             f"stream")
+    return {"config": name, "size": f"{w}x{h}", "frames": n,
+            "measured": measured, "recorded": recorded,
+            "decoded_frames": spent["decoded"], "decoded_bit_exact": True,
+            "decode_s_per_frame": spent["decode_s"] / spent["decoded"],
+            "encode_s": spent["encode_s"], "launches": launches,
+            "spec_stream_equal": True, "spec_frames": N_SPEC_FRAMES}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1456,6 +1541,10 @@ def main() -> int:
     log("[end-to-end] multi-rank encodes (parallel/), ranks sharing the card")
     multi = phase_multirank(dev)
     log(f"[time] {time.monotonic() - t0:.0f} s")
+    log("[quality] the 1080p row of bench_quality.json, decoded by the "
+        "port's decoder; the spec backend against the card")
+    quality = phase_quality(dev)
+    log(f"[time] {time.monotonic() - t0:.0f} s")
 
     src = {"luma_wavefront": "vp8oclenc_tpu_torch/csrc/intra.cu",
            "chroma_wavefront": "vp8oclenc_tpu_torch/csrc/intra.cu",
@@ -1488,6 +1577,7 @@ def main() -> int:
                 else name + "_shard"])
             kernels[-1]["band_mode" if name == "loop_filter"
                         else "shard_mode"] = mode
+    print(json.dumps({"quality": quality}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -241,6 +241,29 @@ def test_default_gop_stream_card_equals_cpu(dev):
     assert a == b
 
 
+def test_mid_gop_checkpoint_round_trip_on_the_card(dev):
+    """A checkpoint taken on the card inside a GOP (LAST, GOLDEN and
+    ALTREF copied to the host) restored into a fresh card encoder and into
+    the spec backend: both continue the card's stream byte-identically."""
+    w, h = 96, 80
+    frames = _moving(w, h, 7, seed=21)
+    cfg = dict(qi_min=10, qi_max=36, gop_size=100, altref_range=3)
+    ref = Encoder(EncoderConfig(**cfg), w, h, device=dev)
+    want = [ref.encode_frame(f) for f in frames]
+    ref.close()
+    enc = Encoder(EncoderConfig(**cfg), w, h, device=dev)
+    for f in frames[:4]:
+        enc.encode_frame(f)
+    st = enc.checkpoint()
+    enc.close()
+    assert st["last"] is not None and st["altref"] is not None
+    for resumed in (Encoder(EncoderConfig(**cfg), w, h, device=dev),
+                    Encoder(EncoderConfig(**cfg), w, h, backend="spec")):
+        resumed.restore(st)
+        assert list(resumed.encode_frames(frames[4:])) == want[4:]
+        resumed.close()
+
+
 def test_inter_dispatch_never_waits_for_the_card(dev):
     """Dispatching an inter frame's chain makes no call that synchronizes
     the stream (a per-call copy from pageable host memory would), so the

@@ -21,6 +21,7 @@ from vp8oclenc_tpu_torch.io.y4m import Frame
 from vp8oclenc_tpu_torch.pipeline.encoder import Encoder
 
 from tests.test_inter_roundtrip import moving_sequence
+from tests.torch_streams import INTER_CFG, REDO_CFG, SSIM_CFG, redo_frames
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = dict(qi_min=10, qi_max=36, gop_size=1)
@@ -76,9 +77,6 @@ def test_cli_matches_jax_cli(tmp_path):
     b = (tmp_path / "port.ivf").read_bytes()
     assert a == b
     assert len(read_ivf(b)[1]) == 3
-
-
-INTER_CFG = dict(qi_min=8, qi_max=30, gop_size=100, altref_range=3)
 
 
 @pytest.mark.parametrize("size,partitions", [((96, 80), 1), ((96, 80), 2),
@@ -139,10 +137,6 @@ def test_cli_default_gop_matches_jax_cli(tmp_path):
     assert len(read_ivf(b)[1]) == 4
 
 
-SSIM_CFG = dict(qi_min=50, qi_max=112, gop_size=100, ssim_target=0.98,
-                altref_range=100)
-
-
 @pytest.fixture(scope="module")
 def ssim_stream():
     """The replacement sequence of tests/test_tpu_backend.py under an SSIM
@@ -191,9 +185,6 @@ def test_ssim_stream_pipelined_matches_jax(ssim_stream, depth):
     assert replaced > 0
 
 
-REDO_CFG = dict(qi_min=95, qi_max=127, gop_size=100, ssim_target=0.99)
-
-
 @pytest.fixture(scope="module")
 def redo_stream():
     """Luma replaced wholesale from frame to frame while chroma stays
@@ -201,15 +192,7 @@ def redo_stream():
     inter frames and they are done again as keyframes.  Frame 3 repeats
     frame 2, four flat columns, and stays an inter frame between redos."""
     w, h = 64, 48
-    rng = np.random.default_rng(3)
-    u = np.full((h // 2, w // 2), 120, np.uint8)
-    v = np.full((h // 2, w // 2), 130, np.uint8)
-    frames = [Frame(rng.integers(0, 255, (h, w)).astype(np.uint8),
-                    u.copy(), v.copy()) for _ in range(5)]
-    yy, xx = np.mgrid[0:h, 0:w]
-    cols = (64 + (xx // 16) * 32).astype(np.uint8)
-    frames[2] = Frame(cols, u.copy(), v.copy())
-    frames[3] = Frame(cols.copy(), u.copy(), v.copy())
+    frames = _port_frames(redo_frames(w, h))
     spec = JaxEncoder(JaxConfig(**REDO_CFG), w, h, backend="spec")
     want = [spec.encode_frame(f) for f in frames]
     redone = (spec.stats.scene_changes_by_ssim,

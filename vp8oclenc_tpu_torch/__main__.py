@@ -1,5 +1,6 @@
 """CLI entry point: Y4M in, IVF out, encoded on an NVIDIA GPU (or with the
-kernels' plain PyTorch versions on the CPU under `-device cpu`).
+kernels' plain PyTorch versions on the CPU under `-device cpu`, or with the
+numpy spec reference on the host under `-backend spec`).
 
     python -m vp8oclenc_tpu_torch -i in.y4m -o out.ivf
 
@@ -34,7 +35,9 @@ def main(argv=None) -> int:
 
     reader = Y4MReader(args.input)
     info = reader.info
-    enc = Encoder(cfg, info.width, info.height, device=args.device)
+    enc = Encoder(cfg, info.width, info.height,
+                  device=args.device if args.backend == "torch" else None,
+                  backend=args.backend)
 
     dump = None
     dump_fh = None

@@ -83,9 +83,12 @@ def build_arg_parser():
                    default=DEFAULT_ALTREF_RANGE, help="frames between altrefs")
     p.add_argument("-print-info", dest="print_info", action="store_true")
     p.add_argument("-frames", type=int, default=0, help="max frames to encode (0 = all)")
+    p.add_argument("-backend", choices=("torch", "spec"), default="torch",
+                   help="pixel pipeline: the torch backend (see -device) or "
+                        "the numpy spec reference on the host")
     p.add_argument("-device", choices=("cuda", "cpu"), default="cuda",
-                   help="pixel pipeline device: hand-written CUDA kernels, or "
-                        "their plain PyTorch versions on the CPU")
+                   help="torch backend's device: hand-written CUDA kernels, "
+                        "or their plain PyTorch versions on the CPU")
     return p
 
 

@@ -250,8 +250,24 @@ class TorchBackend:
         self.golden_state = state(self.golden)
         self.altref_state = state(self.altref)
 
-    def materialize_last(self):
-        return tuple(p.cpu().numpy() for p in self.last)
+    def host_refs(self):
+        """Copies of (LAST, GOLDEN, ALTREF) as numpy planes."""
+        get = lambda t: None if t is None else \
+            tuple(p.cpu().numpy().copy() for p in t)
+        return get(self.last), get(self.golden), get(self.altref)
+
+    _SNAPSHOT = ("last", "last_state", "golden", "golden_state", "altref",
+                 "altref_state")
+
+    def snapshot(self):
+        """The references before a frame.  They are device tensors that
+        later frames replace and never write into, so holding them is
+        enough."""
+        return [getattr(self, k) for k in self._SNAPSHOT]
+
+    def restore(self, snap) -> None:
+        for k, val in zip(self._SNAPSHOT, snap):
+            setattr(self, k, val)
 
 
 def lf_rows(seg) -> np.ndarray:

@@ -1,6 +1,10 @@
 """Frame-loop driver: the per-frame state machine, the counterpart of the
-JAX package's pipeline/encoder.py with the torch backend as its only pixel
-path.
+JAX package's pipeline/encoder.py.
+
+Two pixel backends give the same streams: "torch" (ops/backend.py, the
+CUDA kernels on the card, or their plain PyTorch versions on the CPU), the
+default, and "spec" (spec/backend.py, the sequential numpy oracle, the JAX
+package's "spec").
 
 Reference-frame bookkeeping (golden = key; altref every altref_range),
 key/inter dispatch, the chroma scene-change detector, entropy coding and
@@ -172,11 +176,12 @@ class EntropyCoder:
 
 
 class Encoder:
-    """Single-stream VP8 encoder on one device ("cuda" unless the caller
-    asks for "cpu")."""
+    """Single-stream VP8 encoder.  backend="torch" runs on one device
+    ("cuda" unless the caller asks for "cpu"); backend="spec" runs the
+    numpy oracle on the host and takes no device."""
 
     def __init__(self, cfg: EncoderConfig, width: int, height: int,
-                 device=None) -> None:
+                 device=None, backend: str = "torch") -> None:
         self.cfg = cfg
         self.width = width
         self.height = height
@@ -196,7 +201,16 @@ class Encoder:
         self.recon = None                         # LAST (y, u, v), lazy
         self.last_u = None                        # previous source chroma
         self.last_v = None
-        self.backend = TorchBackend(cfg, self.wrk_w, self.wrk_h, device)
+        if backend == "torch":
+            self.backend = TorchBackend(cfg, self.wrk_w, self.wrk_h, device)
+        elif backend == "spec":
+            if device is not None and str(device) != "cpu":
+                raise ValueError("the spec backend runs on the host; "
+                                 "device applies to the torch backend")
+            from vp8oclenc_tpu_torch.spec.backend import SpecBackend
+            self.backend = SpecBackend(cfg, self.wrk_w, self.wrk_h)
+        else:
+            raise ValueError(f"unknown backend {backend!r}")
         self.entropy = EntropyCoder(cfg, width, height)
 
     def close(self) -> None:
@@ -334,24 +348,19 @@ class Encoder:
 
     _SNAPSHOT = ("frame_number", "frames_until_key", "last_key_detect",
                  "_scene_holdover", "last_u", "last_v", "recon")
-    _BACKEND_SNAPSHOT = ("last", "last_state", "golden", "golden_state",
-                         "altref", "altref_state")
 
     def _snapshot_state(self):
         """Counters, detector state and the backend's references before a
-        frame.  The references are device tensors that later frames replace
-        and never write into, so holding them is enough; the reference
-        schedule is copied."""
+        frame (each backend says how it keeps them); the reference schedule
+        is copied."""
         return ([getattr(self, k) for k in self._SNAPSHOT],
-                copy.copy(self.refs),
-                [getattr(self.backend, k) for k in self._BACKEND_SNAPSHOT])
+                copy.copy(self.refs), self.backend.snapshot())
 
     def _restore_state(self, snap) -> None:
         for k, val in zip(self._SNAPSHOT, snap[0]):
             setattr(self, k, val)
         self.refs = copy.copy(snap[1])
-        for k, val in zip(self._BACKEND_SNAPSHOT, snap[2]):
-            setattr(self.backend, k, val)
+        self.backend.restore(snap[2])
 
     def _redo_as_key(self, fd: FrameData):
         """Code fd's source frame again, as a keyframe, from the snapshot
@@ -415,11 +424,7 @@ class Encoder:
             "last_v": None if self.last_v is None else self.last_v.copy(),
         }
         if self.frames_until_key > 1:
-            get = lambda t: None if t is None else \
-                tuple(p.cpu().numpy().copy() for p in t)
-            st["last"] = get(self.backend.last)
-            st["golden"] = get(self.backend.golden)
-            st["altref"] = get(self.backend.altref)
+            st["last"], st["golden"], st["altref"] = self.backend.host_refs()
         return st
 
     def restore(self, st: dict) -> None:
