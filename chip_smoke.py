@@ -103,10 +103,28 @@ Phases (any failure exits non-zero before the result line):
      exchanged) sharing the card over gloo, byte-identical to one rank,
      the searches and the filter in their shard and band modes; a `uhd`
      JSON line;
-  13. a `kernels` JSON line (each kernel with its launches on the
+  13. wide planes (`[wide]`): the row kernels' shared memory at 16384
+     pixels (VP8's widest, padded to MBs) against the card's opt-in
+     limit; the six kernels against their plain versions at 16384x128
+     (luma and chroma on the panned canvas, the filter on their recon
+     with four segments, the searches on its pyramid level by level, the
+     trial at the HQ quantizers), each timed with bound and share; the
+     filter and luma at 7680x1088, the filter also as 2 bands of 34 MB
+     rows handed down (the lower band's launch against its plain
+     version, the bands equal to the whole plane); the two timed at 8K
+     (7680x4320, 270 MB rows); 2 frames of 7680x1088 at 4 partitions and
+     6 threads through encode_frames byte-identical to the plain CPU
+     encode; 4 frames of 8K (GOPs of 3: keys at 0 and 3) through
+     encode_frames on the card, every kernel of the path launched, the
+     keyframe byte-identical to the plain CPU encode, each frame's first
+     partition printed against the frame tag's 19-bit field, fps, device
+     chains and host split; a `wide` JSON line;
+  14. a `kernels` JSON line (each kernel with its launches on the
      multi-rank path and, for the three with one, its shard or band
-     mode's time, bound and launches; its UHD record), the nvidia-smi
-     line, and as the last line {"ok": true, "device": {...}}.
+     mode's time, bound and launches; its UHD and wide records, the
+     latter with the 8K stream's launches and, for the filter and luma,
+     their card ms at 1080p, UHD and 8K), the nvidia-smi line, and as the
+     last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -159,6 +177,16 @@ UHD_CFG = dict(qi_min=10, qi_max=40, gop_size=3, altref_range=3,
 UHD_SSIM_CFG = dict(SSIM_CFG, num_partitions=4, threads=6)
 UHD_REGIONS = 800             # of 32x32: 3200 MBs of 32400, 1080p's share
 N_UHD_FRAMES, N_UHD_SSIM_FRAMES, N_UHD_CPU_FRAMES = 6, 3, 2
+# Planes up to VP8's widest: the six kernels at 16384x128 (the widest
+# plane padded to MBs; 128 rows so that pyramid level 4 keeps a block
+# row), the loop filter and luma at 7680x1088 whole and as 2 bands, 2
+# frames of 7680x1088 on the card and the CPU; 8K (7680x4320: 480 x 270
+# MBs) at UHD's settings, 4 frames of the panned canvas (keys at 0 and 3),
+# the first also on the CPU
+WIDEST_W, WIDEST_H = 16384, 128
+WIDE_W, WIDE_H = 7680, 4320
+WIDE_STRIP_H = 1088
+N_WIDE_FRAMES, N_WIDE_CPU_FRAMES = 4, 2
 FULLPEL_FEW_BLOCKS = 1024     # csrc/search.cu kFewBlocks: <1> below, <3> at
 
 # integer operations per unit of work, counted from the kernels' arithmetic
@@ -1576,50 +1604,21 @@ def phase_uhd_kernels(dev):
 
     seg = prepare_segments(EncoderConfig(qi_min=QI_PAIRS[0],
                                          qi_max=QI_PAIRS[0]), f.y, True, True)
-    ydq, yaq = int(seg.y_dc_q[0]), int(seg.y_ac_q[0])
-    cdq, caq = int(seg.uv_dc_q[0]), int(seg.uv_ac_q[0])
-    k_l = I.luma_wavefront(y, ydq, yaq)
-    k_c = I.chroma_wavefront(uv, cdq, caq)
-    for name, k, fn, pfn, nbytes, ops in (
-            ("luma_wavefront", k_l, lambda: I.luma_wavefront(y, ydq, yaq),
-             lambda: I.luma_wavefront_plain(y, ydq, yaq),
-             Hp * Wp * 2 + mbc * 16 * 16 * 2 + mbc * 16,
-             (Hp // 4) * (Wp // 4) * OPS_LUMA_BLOCK),
-            ("chroma_wavefront", k_c,
-             lambda: I.chroma_wavefront(uv, cdq, caq),
-             lambda: I.chroma_wavefront_plain(uv, cdq, caq),
-             uv.numel() * 2 + 2 * mbc * 4 * 16 * 2,
-             2 * mbc * 4 * OPS_CHROMA_QUAD)):
+    k_l = I.luma_wavefront(y, int(seg.y_dc_q[0]), int(seg.y_ac_q[0]))
+    k_c = I.chroma_wavefront(uv, int(seg.uv_dc_q[0]), int(seg.uv_ac_q[0]))
+    # the filter on their recon: four segments with their own limits
+    planes, sid, inner, lf, on = _filter_inputs(f, k_l[0], k_c[0], 5, dev)
+    line_ops = (16 * 4 * 2 + 2 * 8 * 2 * 2) * OPS_FILTER_LINE
+    outs = {}
+    for name, fn, pfn, nbytes, ops in _row_specs(y, uv, seg, planes, sid,
+                                                 inner, lf, on):
         p, pms = _plain(pfn)
-        same(name, k, p)
-        for _ in range(2):                  # rows race if the rule is off
-            same(name, fn(), p)
+        for _ in range(3):                  # rows race if the rule is off
+            outs[name] = fn()
+            same(name, outs[name], p)
         rows[name] = record(name, f"{Wp}x{Hp}, {mbh} MB rows", cuda_ms(
             fn, reps=10), pms, *bound(nbytes, ops))
-
-    # the filter on the recon: four segments with their own limits
-    fseg = prepare_segments(EncoderConfig(qi_min=30, qi_max=90), f.y, False,
-                            False)
-    lf = [torch.as_tensor(np.asarray(a, np.int32), device=dev) for a in
-          (fseg.loop_filter_level, fseg.mbedge_limit, fseg.sub_bedge_limit,
-           fseg.interior_limit, fseg.hev_threshold)]
-    rng = np.random.default_rng(5)
-    sid = torch.as_tensor(rng.integers(0, 4, mbc), dtype=torch.int32,
-                          device=dev)
-    inner = torch.as_tensor(rng.random(mbc) < 0.5, device=dev)
-    on = lf[0][sid.long()] > 0              # MBs whose segment filters
-    planes = (k_l[0], k_c[0][0].contiguous(), k_c[0][1].contiguous())
-    line_ops = (16 * 4 * 2 + 2 * 8 * 2 * 2) * OPS_FILTER_LINE
-    fn = lambda: LF.filter_planes(*planes, sid, inner, *lf)
-    whole = fn()
-    p, pms = _plain(lambda: LF.filter_planes_plain(*planes, sid, inner, *lf))
-    same("loop_filter", whole, p)
-    for _ in range(2):
-        same("loop_filter", fn(), p)
-    rows["loop_filter"] = record(
-        "loop_filter", f"{Wp}x{Hp}, {mbh} MB rows", cuda_ms(fn, reps=10),
-        pms, *bound(2 * sum(q.numel() for q in planes),
-                    int(on.sum()) * line_ops))
+    whole = outs["loop_filter"]
     halo, bands, spans = None, [], band_rows(mbh, 2)
     for t, (r0, n) in enumerate(spans):
         cut = [q[r0 * s:(r0 + n) * s].contiguous()
@@ -1719,10 +1718,11 @@ def phase_uhd_kernels(dev):
     return rows
 
 
-def _timed_stream(enc, frames):
+def _timed_stream(enc, frames, first_partitions=None):
     """(payloads, launches by kernel, seconds, frame intervals in ms, MBs
     replaced per frame) of `frames` through `enc.encode_frames`, the
-    counters set to 0 just before it and read just after."""
+    counters set to 0 just before it and read just after; each frame's
+    first partition in bytes is appended to `first_partitions`."""
     counters = _counters()
     for c in counters.values():
         c.launches = 0
@@ -1732,6 +1732,9 @@ def _timed_stream(enc, frames):
         out.append(payload)
         stamps.append(time.monotonic())
         replaced.append(enc.last_frame_stats["replaced"])
+        if first_partitions is not None:
+            first_partitions.append(
+                enc.last_frame_stats["first_partition_bytes"])
     dt = time.monotonic() - t0
     launches = {name: c.launches for name, c in counters.items()}
     return out, launches, dt, [(b - a) * 1e3 for a, b in
@@ -1894,6 +1897,385 @@ def phase_uhd_streams(dev):
              "cpu_frames_equal": N_UHD_CPU_FRAMES}, by_stream)
 
 
+GLOBAL_KERNELS = {"luma_wavefront": "luma_rows_kernel",
+                  "chroma_wavefront": "chroma_rows_kernel",
+                  "fullpel_search": "fullpel_kernel",
+                  "qpel_search": "qpel_kernel",
+                  "trial_luma": "trial_luma_kernel"}
+
+
+def global_kernel(name, width):
+    """The __global__ function that the wrapper `name` launches on a luma
+    plane `width` pixels wide: the loop filter's full-row kernel where the
+    row fits a CTA of this card, its ring kernel above that."""
+    if name != "loop_filter":
+        return GLOBAL_KERNELS[name]
+    from vp8oclenc_tpu_torch.ops import cuda_build
+    return ("loop_filter_ring_kernel"
+            if cuda_build.library("loopfilter").vp8_filter_ring(width)
+            else "loop_filter_rows_kernel")
+
+
+def _row_specs(y, uv, seg, planes, sid, inner, lf, on):
+    """(name, kernel call, plain call, bytes, operations) of the three row
+    kernels on one frame: luma and chroma on its source at `seg`'s first
+    quantizers, the filter on `planes` with the limits `lf`."""
+    from vp8oclenc_tpu_torch.ops import intra as I
+    from vp8oclenc_tpu_torch.ops import loopfilter as LF
+    Hp, Wp = y.shape
+    mbc = (Hp // 16) * (Wp // 16)
+    yq = (int(seg.y_dc_q[0]), int(seg.y_ac_q[0]))
+    cq = (int(seg.uv_dc_q[0]), int(seg.uv_ac_q[0]))
+    line_ops = (16 * 4 * 2 + 2 * 8 * 2 * 2) * OPS_FILTER_LINE
+    return [
+        ("luma_wavefront", lambda: I.luma_wavefront(y, *yq),
+         lambda: I.luma_wavefront_plain(y, *yq),
+         Hp * Wp * 2 + mbc * 16 * 16 * 2 + mbc * 16,
+         (Hp // 4) * (Wp // 4) * OPS_LUMA_BLOCK),
+        ("chroma_wavefront", lambda: I.chroma_wavefront(uv, *cq),
+         lambda: I.chroma_wavefront_plain(uv, *cq),
+         uv.numel() * 2 + 2 * mbc * 4 * 16 * 2,
+         2 * mbc * 4 * OPS_CHROMA_QUAD),
+        ("loop_filter", lambda: LF.filter_planes(*planes, sid, inner, *lf),
+         lambda: LF.filter_planes_plain(*planes, sid, inner, *lf),
+         2 * sum(q.numel() for q in planes), int(on.sum()) * line_ops)]
+
+
+def _filter_inputs(f, y_rec, uv_rec, seed, dev):
+    """The filter's inputs on a recon: four segments with their own limits
+    (qi 30..90), a mixed inner-edge mask; (planes, sid, inner, lf, MBs
+    whose segment filters)."""
+    from vp8oclenc_tpu_torch.config import EncoderConfig
+    from vp8oclenc_tpu_torch.pipeline.segments import prepare_segments
+    fseg = prepare_segments(EncoderConfig(qi_min=30, qi_max=90), f.y, False,
+                            False)
+    lf = [torch.as_tensor(np.asarray(a, np.int32), device=dev) for a in
+          (fseg.loop_filter_level, fseg.mbedge_limit, fseg.sub_bedge_limit,
+           fseg.interior_limit, fseg.hev_threshold)]
+    mbc = y_rec.numel() // 256
+    rng = np.random.default_rng(seed)
+    sid = torch.as_tensor(rng.integers(0, 4, mbc), dtype=torch.int32,
+                          device=dev)
+    inner = torch.as_tensor(rng.random(mbc) < 0.5, device=dev)
+    planes = (y_rec, uv_rec[0].contiguous(), uv_rec[1].contiguous())
+    return planes, sid, inner, lf, lf[0][sid.long()] > 0
+
+
+def phase_wide_kernels(dev):
+    """Planes wider than a whole-row CTA held (the filter from 7264
+    pixels, luma from 11072), up to VP8's widest: the six kernels at
+    16384x128 against their plain versions on the card (the panned
+    canvas; searches level by level on its pyramid, whose level 4 is
+    1024x8; the trial on its 8192 MBs); the filter and luma at 7680x1088,
+    the filter also as 2 bands of 34 MB rows handed down (equal to the
+    whole plane, the lower band's launch equal to its plain version);
+    the filter and luma timed at 8K (7680x4320, 270 MB rows) on a frame
+    of the canvas, with bound and share.  Returns {kernel: its wide
+    record}."""
+    from vp8oclenc_tpu_torch.config import EncoderConfig
+    from vp8oclenc_tpu_torch.io.y4m import pad_frame
+    from vp8oclenc_tpu_torch.ops import cuda_build
+    from vp8oclenc_tpu_torch.ops import inter as IN
+    from vp8oclenc_tpu_torch.ops import intra as I
+    from vp8oclenc_tpu_torch.ops import intra_replace as IR
+    from vp8oclenc_tpu_torch.ops import loopfilter as LF
+    from vp8oclenc_tpu_torch.parallel.mesh import band_rows
+    from vp8oclenc_tpu_torch.pipeline.segments import prepare_segments
+
+    rows = {}
+
+    def same(what, k, p):
+        err = max_abs_err(k, p)
+        if err:
+            raise AssertionError(f"{what}: kernel differs from its plain "
+                                 f"version by {err}")
+
+    def record(name, what, ms, pms, bms, by):
+        log(f"  {name} ({what}): bit-exact, kernel {ms:.4f} ms, plain "
+            f"{pms:.1f} ms, bound {bms:.5f} ms ({by}), share {bms / ms:.4f}")
+        return {"shape": what, "max_abs_err": 0, "ms": ms, "plain_ms": pms,
+                "bound_ms": bms, "bound_by": by, "share": bms / ms}
+
+    intra, filt = cuda_build.library("intra"), cuda_build.library(
+        "loopfilter")
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    smem = {"luma_wavefront": intra.vp8_luma_smem(WIDEST_W),
+            "chroma_wavefront": intra.vp8_chroma_smem(WIDEST_W // 2),
+            "loop_filter": filt.vp8_filter_smem(WIDEST_W)}
+    log(f"  dynamic shared memory a CTA at {WIDEST_W} pixels: "
+        f"{json.dumps(smem)} bytes; this card's opt-in limit {limit}")
+    if max(smem.values()) > limit:
+        raise AssertionError("a row kernel does not fit the widest plane")
+
+    # the six at 16384x128
+    frames = [pad_frame(f) for f in synth_moving(4, seed=3, w=WIDEST_W,
+                                                 h=WIDEST_H)]
+    f = frames[3]
+    y = torch.from_numpy(f.y).to(dev)
+    uv = torch.from_numpy(np.stack([f.u, f.v])).to(dev)
+    Hp, Wp = f.y.shape
+    mbw, mbh = Wp // 16, Hp // 16
+    mbc = mbw * mbh
+    seg = prepare_segments(EncoderConfig(qi_min=QI_PAIRS[0],
+                                         qi_max=QI_PAIRS[0]), f.y, True, True)
+    y_rec = I.luma_wavefront(y, int(seg.y_dc_q[0]), int(seg.y_ac_q[0]))[0]
+    uv_rec = I.chroma_wavefront(uv, int(seg.uv_dc_q[0]),
+                                int(seg.uv_ac_q[0]))[0]
+    size = f"{Wp}x{Hp}, {mbw} MB columns"
+    for name, fn, pfn, nbytes, ops in _row_specs(
+            y, uv, seg, *_filter_inputs(f, y_rec, uv_rec, 5, dev)):
+        p, pms = _plain(pfn)
+        same(f"{name} at {size}", fn(), p)
+        same(f"{name} at {size}, again", fn(), p)
+        rows[name] = record(name, size, cuda_ms(fn, reps=10), pms,
+                            *bound(nbytes, ops))
+    ys = [torch.from_numpy(fr.y).to(dev) for fr in frames]
+    cur = IN.build_pyramid(ys[3])
+    refs = [torch.stack(lv).contiguous() for lv in
+            zip(*(IN.build_pyramid(q) for q in ys[:3]))]
+    fp = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+    vec = None
+    for lvl, rate in ((4, 16), (3, 8), (2, 4), (1, 2), (0, 1)):
+        c, r = cur[lvl], refs[lvl]
+        Hl, Wl = c.shape
+        nby, nbx = Hl // 8, Wl // 8
+        v0 = IN.inherit_vectors(vec, 3, nby, nbx, rate, dev)
+        pen = rate < 4
+        k = IN.fullpel_search(c, r, v0, pen)
+        p, pms = _plain(lambda: IN.fullpel_search_plain(c, r, v0, pen))
+        same(f"fullpel_search level {lvl} at {Wl}x{Hl}", [k], [p])
+        nbytes, ops, _, _, _ = _fullpel_work(c, r, v0)
+        for key, val in (("ms", cuda_ms(lambda: IN.fullpel_search(
+                c, r, v0, pen), reps=10)), ("plain_ms", pms),
+                ("bytes", nbytes), ("ops", ops)):
+            fp[key] += val
+        vec = (k * rate).reshape(3, nby, nbx, 2)
+    rows["fullpel_search"] = record(
+        "fullpel_search", f"5 levels of a {Wp}x{Hp} pyramid", fp["ms"],
+        fp["plain_ms"], *bound(fp["bytes"], fp["ops"]))
+    c, r = cur[0], refs[0]
+    fv = vec.reshape(3, -1, 2).contiguous()
+    p, pms = _plain(lambda: IN.qpel_search_plain(c, r, fv))
+    same("qpel_search", IN.qpel_search(c, r, fv), p)
+    bms, by, jobs, _ = _qpel_bound(c, r, fv)
+    rows["qpel_search"] = record(
+        "qpel_search", f"{Wp}x{Hp}, {jobs} jobs",
+        cuda_ms(lambda: IN.qpel_search(c, r, fv), reps=10), pms, bms, by)
+    sseg = prepare_segments(EncoderConfig(**SSIM_CFG), f.y, False, False)
+    q = (int(sseg.y_dc_q[1]), int(sseg.y_ac_q[1]))
+    y_mb = IR._plane_mb(y, 16).contiguous()
+    ftop, fleft = IR._frozen_luma_neighbors(y_rec, mbw, mbh)
+    p, pms = _plain(lambda: IR.trial_luma_plain(y_mb, ftop, fleft, *q))
+    same("trial_luma", IR.trial_luma(y_mb, ftop, fleft, *q), p)
+    rows["trial_luma"] = record(
+        "trial_luma", f"{mbc} MBs, the HQ quantizers of the SSIM target",
+        cuda_ms(lambda: IR.trial_luma(y_mb, ftop, fleft, *q), reps=10), pms,
+        *bound(mbc * (256 + 21 + 16 + 256 * 2 + 16 + 256),
+               mbc * 16 * OPS_LUMA_BLOCK))
+    del frames, ys, cur, refs
+
+    # the filter and luma at 7680x1088, the filter also as 2 bands
+    f = pad_frame(synth_moving(4, seed=3, w=WIDE_W, h=WIDE_STRIP_H)[3])
+    y = torch.from_numpy(f.y).to(dev)
+    uv = torch.from_numpy(np.stack([f.u, f.v])).to(dev)
+    Hp, Wp = f.y.shape
+    mbw, mbh = Wp // 16, Hp // 16
+    seg = prepare_segments(EncoderConfig(qi_min=QI_PAIRS[0],
+                                         qi_max=QI_PAIRS[0]), f.y, True, True)
+    y_rec = I.luma_wavefront(y, int(seg.y_dc_q[0]), int(seg.y_ac_q[0]))[0]
+    uv_rec = I.chroma_wavefront(uv, int(seg.uv_dc_q[0]),
+                                int(seg.uv_ac_q[0]))[0]
+    planes, sid, inner, lf, on = _filter_inputs(f, y_rec, uv_rec, 6, dev)
+    size = f"{Wp}x{Hp}"
+    for name, fn, pfn, _, _ in _row_specs(y, uv, seg, planes, sid, inner, lf,
+                                          on):
+        if name == "chroma_wavefront":
+            continue
+        p, pms = _plain(pfn)
+        same(f"{name} at {size}", fn(), p)
+        if name == "loop_filter":
+            whole = p
+        rows[name][f"at_{size}"] = {"kernel": global_kernel(name, Wp),
+                                    "max_abs_err": 0, "plain_ms": pms}
+        log(f"  {name} at {size}: bit-exact (plain {pms:.1f} ms)")
+    halo, bands, spans = None, [], band_rows(mbh, 2)
+    for t, (r0, n) in enumerate(spans):
+        cut = [q[r0 * s:(r0 + n) * s].contiguous()
+               for q, s in zip(planes, (16, 8, 8))]
+        mbs = slice(r0 * mbw, (r0 + n) * mbw)
+        args = (*cut, halo, sid[mbs].contiguous(), inner[mbs].contiguous(),
+                *lf)
+        out, wb = LF.filter_band(*args)
+        if t == len(spans) - 1:          # the lower band, with its halo
+            p, pms = _plain(lambda: LF.filter_band_plain(*args))
+            same(f"loop_filter band of {n} MB rows at {Wp}", list(out)
+                 + list(wb), list(p[0]) + list(p[1]))
+            rows["loop_filter"][f"band_{Wp}"] = {
+                "kernel": global_kernel("loop_filter", Wp),
+                "shape": f"{Wp}x{n * 16} band with 4 halo lines",
+                "max_abs_err": 0, "plain_ms": pms}
+        if wb is not None:
+            for k in range(3):
+                bands[-1][k][-3:] = wb[k]
+        bands.append([o.clone() for o in out])
+        halo = [o[-4:].contiguous() for o in out]
+    err = max_abs_err([torch.cat([b[k] for b in bands]) for k in range(3)],
+                      whole)
+    if err:
+        raise AssertionError(f"the bands {spans} at {Wp} differ from the "
+                             f"whole-plane filter by {err}")
+    log(f"  loop_filter as bands of {[n for _, n in spans]} MB rows at {Wp} "
+        f"handed down: the lower band's launch bit-exact, the bands equal "
+        f"to the whole plane")
+
+    # the filter and luma timed at 8K
+    f = pad_frame(synth_moving(4, seed=3, w=WIDE_W, h=WIDE_H)[3])
+    y = torch.from_numpy(f.y).to(dev)
+    uv = torch.from_numpy(np.stack([f.u, f.v])).to(dev)
+    Hp, Wp = f.y.shape
+    seg = prepare_segments(EncoderConfig(qi_min=QI_PAIRS[0],
+                                         qi_max=QI_PAIRS[0]), f.y, True, True)
+    y_rec = I.luma_wavefront(y, int(seg.y_dc_q[0]), int(seg.y_ac_q[0]))[0]
+    uv_rec = I.chroma_wavefront(uv, int(seg.uv_dc_q[0]),
+                                int(seg.uv_ac_q[0]))[0]
+    for name, fn, _, nbytes, ops in _row_specs(
+            y, uv, seg, *_filter_inputs(f, y_rec, uv_rec, 7, dev)):
+        if name == "chroma_wavefront":
+            continue
+        ms = cuda_ms(fn, reps=10)
+        bms, by = bound(nbytes, ops)
+        log(f"  {name} at {Wp}x{Hp} ({Hp // 16} MB rows): kernel {ms:.4f} "
+            f"ms, bound {bms:.5f} ms ({by}), share {bms / ms:.4f}")
+        rows[name]["8k"] = {"kernel": global_kernel(name, Wp),
+                            "shape": f"{Wp}x{Hp}", "ms": ms,
+                            "bound_ms": bms, "bound_by": by,
+                            "share": bms / ms, "smem": smem[name]}
+    return rows
+
+
+def phase_wide_streams(dev):
+    """8K's width through the entry points at 4 partitions and 6 threads:
+    2 frames of 7680x1088 on the card byte-identical to the plain CPU
+    encode; then 4 frames of 7680x4320 (the panned canvas, GOPs of 3:
+    keys at 0 and 3) through Encoder.encode_frames on the card, every
+    kernel of the path launched, the keyframe byte-identical to the
+    plain CPU encode, fps and frame intervals, each frame's first
+    partition against the tag's 19-bit field, the device chains and the
+    sequential host split.  Returns (the `wide` record, launches
+    on the 8K stream)."""
+    from vp8oclenc_tpu_torch.config import EncoderConfig
+    from vp8oclenc_tpu_torch.entropy.header import (FIRST_PARTITION_LIMIT,
+                                                     tag_first_partition_size)
+    from vp8oclenc_tpu_torch.pipeline.encoder import Encoder, _own_padded
+    from vp8oclenc_tpu_torch.pipeline.segments import prepare_segments
+
+    strip = synth_moving(N_WIDE_CPU_FRAMES, seed=1, w=WIDE_W, h=WIDE_STRIP_H)
+    enc = Encoder(EncoderConfig(**UHD_CFG), WIDE_W, WIDE_STRIP_H, device=dev)
+    sout = list(enc.encode_frames(strip))
+    enc.close()
+    if [p[0] & 1 for p in sout] != [0, 1]:
+        raise AssertionError("7680x1088: not a keyframe and an inter frame")
+    _same_as_cpu(f"{WIDE_W}x{WIDE_STRIP_H}", UHD_CFG, strip, sout, w=WIDE_W,
+                 h=WIDE_STRIP_H)
+
+    size = f"{WIDE_W}x{WIDE_H}"
+    frames = synth_moving(N_WIDE_FRAMES, seed=1, w=WIDE_W, h=WIDE_H)
+    cfg = EncoderConfig(**UHD_CFG)
+    warm = Encoder(cfg, WIDE_W, WIDE_H, device=dev)
+    list(warm.encode_frames(frames[:2]))          # first-use costs
+    warm.close()
+    torch.cuda.synchronize()
+    enc = Encoder(cfg, WIDE_W, WIDE_H, device=dev)
+    fps_bytes = []
+    out, launches, dt, gaps, _ = _timed_stream(enc, frames, fps_bytes)
+    enc.close()
+    tags = [p[0] & 1 for p in out]
+    if tags != [0, 1, 1, 0]:
+        raise AssertionError(f"8K default GOP: frame tags {tags}")
+    # the keyframe on the CPU: its cost follows the width's chain of steps
+    # (~50 s), an inter frame's would double it
+    _same_as_cpu(f"{WIDE_W}x{WIDE_H} keyframe", UHD_CFG, frames[:1], out,
+                 w=WIDE_W, h=WIDE_H)
+    for name in ("luma_wavefront", "chroma_wavefront", "loop_filter",
+                 "fullpel_search", "qpel_search"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was never launched on the 8K "
+                                 f"default-GOP path")
+    first = [{"frame": i, "key": not t, "bytes": n,
+              "tag_field": tag_first_partition_size(p),
+              "below_2^19": n < FIRST_PARTITION_LIMIT}
+             for i, (p, t, n) in enumerate(zip(out, tags, fps_bytes))]
+    for r in first:
+        if r["tag_field"] != r["bytes"] % FIRST_PARTITION_LIMIT:
+            raise AssertionError(f"frame {r['frame']}: the tag states "
+                                 f"{r['tag_field']}, not the first "
+                                 f"partition's {r['bytes']} bytes modulo "
+                                 f"2^19")
+    gop = {"frames": N_WIDE_FRAMES, "inter": sum(tags),
+           "fps": N_WIDE_FRAMES / dt, "intervals_ms": gaps,
+           "bytes": [len(p) for p in out], "first_partition": first}
+    log(f"  default GOP: {N_WIDE_FRAMES} frames {size} ({sum(tags)} inter) "
+        f"in {dt:.3f} s: {gop['fps']:.3f} fps end to end, frame intervals "
+        f"{[round(g, 3) for g in gaps]} ms, bytes {gop['bytes']}; launches "
+        f"{json.dumps(launches)}")
+    mbc = WIDE_W * WIDE_H // 256
+    for r in first:
+        log(f"  frame {r['frame']} ({'key' if r['key'] else 'inter'}): first "
+            f"partition {r['bytes']} bytes ({r['bytes'] / mbc:.3f} a MB), "
+            f"{'below' if r['below_2^19'] else 'NOT below'} 2^19; the tag's "
+            f"19-bit field states {r['tag_field']}")
+
+    # device chains, frames pre-uploaded: a keyframe, then an inter frame
+    probe = Encoder(cfg, WIDE_W, WIDE_H, device=dev)
+    p = _own_padded(frames[0])
+    seg = prepare_segments(probe.cfg, p.y, True, True)
+    yuv = probe.backend.upload_frame(p.y, p.u, p.v)
+    key_ms = [span_ms(lambda: probe.backend.encode_intra_frame(
+        p.y, p.u, p.v, seg, yuv_dev=yuv)) for _ in range(3)]
+    fd, seg = probe._frame_pixels(_own_padded(frames[0]))
+    probe.backend.finalize_framedata(fd, seg)
+    p = _own_padded(frames[1])
+    seg = prepare_segments(probe.cfg, p.y, False, False)
+    yuv = probe.backend.upload_frame(p.y, p.u, p.v)
+    inter_ms = [span_ms(lambda: probe.backend.encode_inter_frame(
+        probe, p.y, p.u, p.v, seg, False, False, yuv_dev=yuv))
+        for _ in range(3)]
+    probe.close()
+    gop["key_chain_ms"] = statistics.median(key_ms)
+    gop["inter_chain_ms"] = statistics.median(inter_ms)
+    log(f"  device chain, median of 3: keyframe (intra, filter, D2H) "
+        f"{gop['key_chain_ms']:.3f} ms; inter frame (search, body, filter, "
+        f"next LAST pyramid, D2H) {gop['inter_chain_ms']:.3f} ms")
+
+    # the host's share, frame by frame without overlap
+    split = {"key": {}, "inter": {}}
+    seq = Encoder(cfg, WIDE_W, WIDE_H, device=dev)
+    for i, f in enumerate(frames):
+        ta = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error" if tags[i] else "default")
+        fd, seg = seq._frame_pixels(_own_padded(f))
+        torch.cuda.set_sync_debug_mode("default")
+        tb = time.perf_counter()
+        seq.backend.finalize_framedata(fd, seg)
+        tc = time.perf_counter()
+        seq._finish_frame(fd, seg)
+        td = time.perf_counter()
+        part = split["key" if fd.is_key else "inter"]
+        for k, v in zip(("pad_upload_dispatch", "wait_device_d2h",
+                         "entropy_and_headers"), (tb - ta, tc - tb, td - tc)):
+            part.setdefault(k, []).append(v * 1e3)
+    seq.close()
+    gop["host_split_ms"] = {
+        kind: {k: statistics.median(v) for k, v in part.items()}
+        for kind, part in split.items()}
+    log("  sequential host split, medians per keyframe (of 2) and inter "
+        "frame (of 2), ms: " + json.dumps(gop["host_split_ms"]))
+    return ({"size": size, "config": UHD_CFG, "default_gop": gop,
+             "cpu_frames_equal": 1,
+             "strip": {"size": f"{WIDE_W}x{WIDE_STRIP_H}",
+                       "cpu_frames_equal": N_WIDE_CPU_FRAMES}}, launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1961,6 +2343,15 @@ def main() -> int:
         f"threads: default GOP, SSIM target; 4 ranks over 2 x 2 row tiles")
     uhd, uhd_launches = phase_uhd_streams(dev)
     log(f"[time] {time.monotonic() - t0:.0f} s")
+    log(f"[wide] the six kernels at {WIDEST_W}x{WIDEST_H}, the filter and "
+        f"luma at {WIDE_W}x{WIDE_STRIP_H} and timed at {WIDE_W}x{WIDE_H}")
+    wide_rows = phase_wide_kernels(dev)
+    log(f"[time] {time.monotonic() - t0:.0f} s")
+    log(f"[wide] Encoder.encode_frames at {WIDE_W}x{WIDE_STRIP_H} against "
+        f"the CPU, and {N_WIDE_FRAMES} frames of {WIDE_W}x{WIDE_H}, 4 "
+        f"partitions, 6 threads")
+    wide, wide_launches = phase_wide_streams(dev)
+    log(f"[time] {time.monotonic() - t0:.0f} s")
 
     src = {"luma_wavefront": "vp8oclenc_tpu_torch/csrc/intra.cu",
            "chroma_wavefront": "vp8oclenc_tpu_torch/csrc/intra.cu",
@@ -1977,7 +2368,8 @@ def main() -> int:
     kernels = []
     for name, r in rows.items():
         kernels.append({
-            "name": name, "route": "cuda", "source": src[name],
+            "name": name, "kernel": global_kernel(name, W),
+            "route": "cuda", "source": src[name],
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": r["max_abs_err"],
             "ms": statistics.median(r["ms"]),
@@ -1993,10 +2385,22 @@ def main() -> int:
                 else name + "_shard"])
             kernels[-1]["band_mode" if name == "loop_filter"
                         else "shard_mode"] = mode
-        kernels[-1]["uhd"] = dict(uhd_rows[name], launches={
-            stream: n[name] for stream, n in uhd_launches.items()})
+        kernels[-1]["uhd"] = dict(uhd_rows[name], kernel=global_kernel(
+            name, UHD_W), launches={stream: n[name] for stream, n in
+                                    uhd_launches.items()})
+        kernels[-1]["wide"] = dict(wide_rows[name], kernel=global_kernel(
+            name, WIDEST_W), launches_8k=wide_launches[name])
+        if "8k" in wide_rows[name]:   # the kernels this slice changed
+            by = kernels[-1]["wide"]["ms_by_kernel"] = {}
+            for width, size, ms in (
+                    (W, "1920x1088", statistics.median(r["ms"])),
+                    (UHD_W, f"{UHD_W}x{UHD_H}", uhd_rows[name]["ms"]),
+                    (WIDE_W, f"{WIDE_W}x{WIDE_H}",
+                     wide_rows[name]["8k"]["ms"])):
+                by.setdefault(global_kernel(name, width), {})[size] = ms
     print(json.dumps({"quality": quality}), flush=True)
     print(json.dumps({"uhd": uhd}), flush=True)
+    print(json.dumps({"wide": wide}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,10 @@ and skip without one; on the card run them with
 (--noconftest: the suite's conftest imports JAX, which the port does not
 need).  The 1920x1088 comparison is part of chip_smoke.py; the UHD cases
 here (3840x2160) hold each kernel once at that size and a 2-frame stream
-against the CPU's."""
+against the CPU's; the wide cases hold the filter (its ring kernel from
+7264 pixels) and luma (its source ring) up to 16384 pixels, the filter
+in band mode at 7680, and a 2-frame 7680x1088 stream against the
+CPU's."""
 import numpy as np
 import pytest
 import torch
@@ -587,26 +590,96 @@ def test_uhd_kernels_match_plain(dev, uhd_frames, kernel):
     torch.cuda.synchronize()
 
 
-def test_row_kernels_refuse_planes_wider_than_their_shared_memory(dev):
+def test_row_kernels_take_the_widest_vp8_plane(dev):
     """The row kernels' shared memory (the libraries' own counts) fits a
-    CTA at UHD; a plane wider than the loop filter's limit is refused by
-    name, and the next launch runs clean."""
+    CTA of this card at 16384 pixels, VP8's widest plane padded to MBs:
+    luma's source ring does not grow with the width, and the filter takes
+    its ring kernel where the full row no longer fits (from 7264)."""
     from vp8oclenc_tpu_torch.ops import cuda_build
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     intra = cuda_build.library("intra")
-    filt = cuda_build.library("loopfilter").vp8_filter_smem
-    assert max(intra.vp8_luma_smem(UHD_W), intra.vp8_chroma_smem(UHD_W // 2),
-               filt(UHD_W)) <= limit
-    widest = cuda_build.widest_plane(filt, limit, 16384)
-    assert filt(widest + 16) > limit
-    args = _filter_args(widest + 16, 16, 3, dev)
-    with pytest.raises(ValueError, match=f"vp8_loop_filter: a plane "
-                       f"{widest + 16} pixels wide .* more than the {limit} "
-                       f".* widest plane it takes is {widest} pixels"):
-        LF.filter_planes(*args)
-    args = _filter_args(48, 32, 3, dev)
-    assert all(torch.equal(a, b) for a, b in zip(
-        LF.filter_planes(*args), LF.filter_planes_plain(*args)))
+    lib = cuda_build.library("loopfilter")
+    filt = lib.vp8_filter_smem
+    assert max(intra.vp8_luma_smem(16384), intra.vp8_chroma_smem(8192),
+               filt(16384)) <= limit
+    assert filt(7264) == filt(16384) < filt(7248) <= limit
+    assert [lib.vp8_filter_ring(w) for w in (1920, 3840, 7248, 7264, 7680,
+                                             16384)] == [0, 0, 0, 1, 1, 1]
+
+
+def _same_as_plain_on_cpu(kernel_out, plain_out):
+    """The plain versions run on the CPU here: the same function on the
+    same inputs, without the card's per-step launches."""
+    return all(torch.equal(a.cpu(), b) for a, b in zip(kernel_out, plain_out))
+
+
+@pytest.mark.parametrize("w,h", [(7264, 32), (7680, 48), (11072, 32),
+                                 (16384, 64)])
+def test_wide_row_kernels_match_plain(dev, w, h):
+    """Widths where staging the whole row does not fit a CTA (the filter
+    from 7264, where its ring kernel takes over; luma from 11072, which
+    its source ring lifts) up to 16384: the filter, luma and chroma
+    bit-exact against their plain versions."""
+    planes = [torch.from_numpy(p) for p in _planes(w, h, w)]
+    args = _filter_args(w, h, w + 1, dev)
+    want = LF.filter_planes_plain(*[a.cpu() for a in args])
+    assert _same_as_plain_on_cpu(LF.filter_planes(*args), want)
+    y = planes[0].to(dev)
+    assert _same_as_plain_on_cpu(I.luma_wavefront(y, 30, 40),
+                                 I.luma_wavefront_plain(planes[0], 30, 40))
+    uv = torch.stack(planes[1:])
+    assert _same_as_plain_on_cpu(I.chroma_wavefront(uv.to(dev), 30, 40),
+                                 I.chroma_wavefront_plain(uv, 30, 40))
+    torch.cuda.synchronize()
+
+
+def _bands_match_plain(args, T):
+    """The filter in band mode over T bands of the planes in `args`
+    (`_filter_args`), each band's halo from the band above: each launch
+    equal to its plain version."""
+    from vp8oclenc_tpu_torch.parallel.mesh import band_rows
+    planes, sid, inner, lim = args[:3], args[3], args[4], args[5:]
+    mbw = planes[0].shape[1] // 16
+    halo = None
+    for r0, n in band_rows(planes[0].shape[0] // 16, T):
+        cut = [q[r0 * s:(r0 + n) * s].contiguous()
+               for q, s in zip(planes, (16, 8, 8))]
+        mbs = slice(r0 * mbw, (r0 + n) * mbw)
+        band = (*cut, halo, sid[mbs].contiguous(), inner[mbs].contiguous(),
+                *lim)
+        out, wb = LF.filter_band(*band)
+        want, wwb = LF.filter_band_plain(*[
+            None if a is None else [h.cpu() for h in a] if isinstance(a, list)
+            else a.cpu() for a in band])
+        assert _same_as_plain_on_cpu(out, want)
+        assert (wb is None) == (wwb is None)
+        if wb is not None:
+            assert _same_as_plain_on_cpu(wb, wwb)
+        halo = [o[-4:].contiguous() for o in out]
+
+
+def test_wide_band_filter_matches_plain(dev):
+    """Band mode at 7680 pixels: 5 MB rows as bands of 3 and 2 handed
+    down, halos in and write-back lines out equal to the plain version."""
+    _bands_match_plain(_filter_args(7680, 80, 11, dev), 2)
+
+
+def test_wide_stream_card_equals_cpu(dev):
+    """Two frames of a panned canvas 7680x1088 (8K's width) at 4
+    partitions and 6 packer threads: the card's bytes equal the plain CPU
+    encode's."""
+    w, h = 7680, 1088
+    frames = _moving(w, h, 2, 41)
+    cfg = dict(qi_min=10, qi_max=40, gop_size=3, altref_range=3,
+               num_partitions=4, threads=6)
+    gpu = Encoder(EncoderConfig(**cfg), w, h, device=dev)
+    a = list(gpu.encode_frames(frames))
+    gpu.close()
+    assert [p[0] & 1 for p in a] == [0, 1]
+    cpu = Encoder(EncoderConfig(**cfg), w, h, device="cpu")
+    b = list(cpu.encode_frames(frames))
+    cpu.close()
+    assert a == b
 
 
 def test_uhd_stream_card_equals_cpu(dev, uhd_frames):

@@ -101,18 +101,3 @@ def test_uhd_two_lanes_two_tiles_decode():
     print(f"UHD 2 frames, single rank + decode + 4 ranks: "
           f"{time.monotonic() - t0:.1f} s, {[len(p) for p in got]} bytes")
 
-
-def test_row_kernel_refusal_names_the_widest_plane():
-    """A row kernel whose shared memory grows with the width is refused
-    above the card's limit with an error naming that limit and the widest
-    plane it takes (the counts themselves are the libraries' own,
-    `vp8_*_smem`, held on the card by tests/test_torch_cuda.py)."""
-    from vp8oclenc_tpu_torch.ops.cuda_build import refuse_wide, widest_plane
-    need = lambda w: 20 * w + 100
-    assert widest_plane(need, 1500, 160) == 64
-    assert widest_plane(need, 100, 64) == 0
-    refuse_wide("kernel", need, 64, 1500)
-    with pytest.raises(ValueError, match=r"kernel: a plane 80 pixels wide "
-                       r"needs 1700 bytes .* more than the 1500 .* widest "
-                       r"plane it takes is 64 pixels"):
-        refuse_wide("kernel", need, 80, 1500)

@@ -1,7 +1,7 @@
-"""Where one 1080p (or UHD) inter frame of the PyTorch/CUDA port spends
+"""Where one 1080p (UHD, 8K) inter frame of the PyTorch/CUDA port spends
 its time, on one NVIDIA GPU, from a torch.profiler trace.
 
-    python3 tools/profile_inter_cuda.py [--ssim] [--uhd]
+    python3 tools/profile_inter_cuda.py [--ssim] [--uhd | --wide]
 
 Encodes the keyframe and one inter frame of chip_smoke.py's panned canvas
 (default GOP, qi 10..40) to warm up, then traces 3 more inter frames, each
@@ -10,7 +10,10 @@ dispatched (`Encoder._frame_pixels`), synchronized and finalized.  With
 target (qi 50..112, target 0.98): the segment loop, the three luma trials
 and the replacement merge are in the trace.  With `--uhd` the frames are
 3840x2160 (chip_smoke.py's UHD content and settings, GOPs long enough
-that every traced frame is an inter frame).  Prints,
+that every traced frame is an inter frame); with `--wide` they are
+7680x4320 at the same settings (chip_smoke.py's 8K content; under
+`--ssim` 4x UHD's replacement cells; the trace's name ends in `_wide`
+in place of `_uhd`).  Prints,
 per inter frame: device time by kernel name (the top entries and the
 rest), the number of device kernels, the host time of the dispatch and
 the number of kernel launches it made.  The Chrome trace goes to
@@ -36,20 +39,23 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from chip_smoke import (SSIM_CFG, UHD_CFG, UHD_H, UHD_REGIONS,
-                            UHD_SSIM_CFG, UHD_W, nvidia_smi_line,
-                            synth_moving, synth_replacement, W, H)
+                            UHD_SSIM_CFG, UHD_W, WIDE_H, WIDE_W,
+                            nvidia_smi_line, synth_moving,
+                            synth_replacement, W, H)
     from torch.profiler import ProfilerActivity, profile
     from vp8oclenc_tpu_torch.config import EncoderConfig
     from vp8oclenc_tpu_torch.pipeline.encoder import Encoder, _own_padded
 
     ssim = "--ssim" in sys.argv[1:]
-    uhd = "--uhd" in sys.argv[1:]
-    w, h = (UHD_W, UHD_H) if uhd else (W, H)
+    wide = "--wide" in sys.argv[1:]
+    uhd = "--uhd" in sys.argv[1:] or wide      # UHD's settings
+    w, h = (WIDE_W, WIDE_H) if wide else (UHD_W, UHD_H) if uhd else (W, H)
     print(nvidia_smi_line())
     if ssim:
         frames = synth_replacement(
             2 + N_TRACED, seed=1, w=w, h=h,
-            **({"regions": UHD_REGIONS} if uhd else {}))
+            **({"regions": UHD_REGIONS * (4 if wide else 1)} if uhd
+               else {}))
         cfg = EncoderConfig(**(UHD_SSIM_CFG if uhd else SSIM_CFG))
     else:
         frames = synth_moving(2 + N_TRACED, seed=1, w=w, h=h)
@@ -109,7 +115,8 @@ def main() -> int:
     out = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(
-        out, "profile_inter_cuda" + "_ssim" * ssim + "_uhd" * uhd + ".json"))
+        out, "profile_inter_cuda" + "_ssim" * ssim
+        + ("_wide" if wide else "_uhd" if uhd else "") + ".json"))
     return 0
 
 

@@ -2,21 +2,30 @@
 by the card's clock, for comparing two trees on the same card in one
 command.
 
-    python3 tools/time_kernels_cuda.py [--root DIR]
+    python3 tools/time_kernels_cuda.py [--root DIR] [--uhd] [--only A,B]
 
-`--root` names the checkout whose `vp8oclenc_tpu_torch` is timed (default:
-the one this file is in), so an older tree unpacked beside this one can be
-run in turns with it.  Inputs are chip_smoke.py's, made from seeds: the
-padded synthetic frame at qi 10 for the intra kernels and the filter; the
-panned canvas's pyramid with the vectors of a real hierarchical search for
-the searches, the full-pel search at each of its five levels 4..0; the luma
-trial on that frame's MBs with neighbours from its reconstruction, at the
-AQ, HQ and UQ quantizers of -qmin 50 -qmax 112.  Every kernel is held
-against its plain version first (bit-exact or the run fails), then timed
-by chip_smoke.cuda_ms (20 launches queued behind a sleep of the card, so
-the CUDA events time the card, not the host's issue), three times; the
-line printed is one JSON object with the least and the median of the three
-for each kernel, and the card's name and power limit.
+`--root` names the checkout whose `vp8oclenc_tpu_torch` is timed
+(default: the one this file is in), so an older tree unpacked beside
+this one can be run in turns with it.  Inputs are chip_smoke.py's, made
+from seeds: the padded synthetic frame at qi 10 for the intra kernels
+and the filter; the panned canvas's pyramid with the vectors of a real
+hierarchical search for the searches, the full-pel search at each of its
+five levels 4..0; the luma trial on that frame's MBs with neighbours
+from its reconstruction, at the AQ, HQ and UQ quantizers of -qmin 50
+-qmax 112.  Every kernel is held against its plain version first
+(bit-exact or the run fails), then timed by chip_smoke.cuda_ms (20
+launches queued behind a sleep of the card, so the CUDA events time the
+card, not the host's issue), three times; the line printed is one JSON
+object with the least and the median of the three for each kernel, and
+the card's name and power limit.  `--uhd` adds the three row kernels
+(luma, chroma, loop filter) at 3840x2160 on chip_smoke.py's [uhd] inputs:
+`*_uhd` on the whole frame, timed only (the plain versions take 10-20 s
+there), and `*_uhd_strip` on its top 4 MB rows, held and timed as the
+others.  The cases `*_row1920` time the three row kernels on one MB row
+of the 1080p frame (1920x16), which no row above holds up: their time
+over the row's steps is a step's latency (chip_smoke.py's chain figure).
+`--only` keeps the cases whose names start with one of the given
+prefixes (`--only luma_wavefront,loop_filter`).
 """
 from __future__ import annotations
 
@@ -35,7 +44,10 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
-    root = os.path.abspath(ap.parse_args().root)
+    ap.add_argument("--uhd", action="store_true")
+    ap.add_argument("--only", default="")
+    opts = ap.parse_args()
+    root = os.path.abspath(opts.root)
     if not torch.cuda.is_available():
         print("time_kernels_cuda: no CUDA device", file=sys.stderr)
         return 1
@@ -105,6 +117,19 @@ def main() -> int:
             lambda: LF.filter_planes(*planes, sid, inner, *lf),
             lambda: LF.filter_planes_plain(*planes, sid, inner, *lf)),
     }
+    y1, uv1 = y[:16].contiguous(), uv[:, :8].contiguous()
+    row = [p_[:n].contiguous() for p_, n in zip(planes, (16, 8, 8))]
+    mbw = y.shape[1] // 16
+    cases.update({
+        "luma_wavefront_row1920": (lambda: I.luma_wavefront(y1, *yq),
+                                   lambda: I.luma_wavefront_plain(y1, *yq)),
+        "chroma_wavefront_row1920": (
+            lambda: I.chroma_wavefront(uv1, *cq),
+            lambda: I.chroma_wavefront_plain(uv1, *cq)),
+        "loop_filter_row1920": (
+            lambda: LF.filter_planes(*row, sid[:mbw], inner[:mbw], *lf),
+            lambda: LF.filter_planes_plain(*row, sid[:mbw], inner[:mbw],
+                                           *lf))})
     for lvl, args in levels.items():
         cases[f"fullpel_search_level{lvl}"] = (
             lambda a=args: IN.fullpel_search(*a),
@@ -114,19 +139,59 @@ def main() -> int:
         cases[f"trial_luma_{name}"] = (
             lambda q=q: IR.trial_luma(y_mb, ftop, fleft, *q),
             lambda q=q: IR.trial_luma_plain(y_mb, ftop, fleft, *q))
+    if opts.uhd:
+        cases.update(_uhd_cases(dev))
+    if opts.only:
+        keep = tuple(opts.only.split(","))
+        cases = {k: v for k, v in cases.items() if k.startswith(keep)}
     out = {"root": root, "card": nvidia_smi_line(), "ms": {}}
     for name, (kfn, pfn) in cases.items():
-        err = max_abs_err(tup(kfn()), tup(pfn()))
+        err = 0 if pfn is None else max_abs_err(tup(kfn()), tup(pfn()))
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version by {err}")
         ms = [cuda_ms(kfn, reps=20) for _ in range(3)]
         out["ms"][name] = {"min": min(ms), "median": statistics.median(ms)}
-    out["ms"]["fullpel_search_5_levels"] = {
-        k: sum(out["ms"][f"fullpel_search_level{lvl}"][k] for lvl in levels)
-        for k in ("min", "median")}
+    if all(f"fullpel_search_level{lvl}" in out["ms"] for lvl in levels):
+        out["ms"]["fullpel_search_5_levels"] = {
+            k: sum(out["ms"][f"fullpel_search_level{lvl}"][k]
+                   for lvl in levels) for k in ("min", "median")}
     print(json.dumps(out), flush=True)
     return 0
+
+
+def _uhd_cases(dev):
+    """{name: (kernel, plain or None)} for the three row kernels at
+    3840x2160 on chip_smoke.py's [uhd] inputs (frame 3 of the panned
+    canvas at its first keyframe quantizer; the filter on the kernels'
+    recon with four segments and a mixed inner-edge mask): `*_uhd` on the
+    whole frame with no plain version, `*_uhd_strip` on the top 4 MB
+    rows with theirs."""
+    from chip_smoke import (QI_PAIRS, UHD_H, UHD_W, _filter_inputs,
+                            _row_specs, synth_moving)
+    from vp8oclenc_tpu_torch.config import EncoderConfig
+    from vp8oclenc_tpu_torch.io.y4m import pad_frame
+    from vp8oclenc_tpu_torch.ops import intra as I
+    from vp8oclenc_tpu_torch.pipeline.segments import prepare_segments
+    f = pad_frame(synth_moving(4, seed=3, w=UHD_W, h=UHD_H)[3])
+    y = torch.from_numpy(f.y).to(dev)
+    uv = torch.from_numpy(np.stack([f.u, f.v])).to(dev)
+    seg = prepare_segments(EncoderConfig(qi_min=QI_PAIRS[0],
+                                         qi_max=QI_PAIRS[0]), f.y, True, True)
+    rec_y = I.luma_wavefront(y, int(seg.y_dc_q[0]), int(seg.y_ac_q[0]))[0]
+    rec_uv = I.chroma_wavefront(uv, int(seg.uv_dc_q[0]),
+                                int(seg.uv_ac_q[0]))[0]
+    planes, sid, inner, lf, on = _filter_inputs(f, rec_y, rec_uv, 5, dev)
+    n = 4 * (y.shape[1] // 16)
+    top = lambda t, rows: t[..., :rows, :].contiguous()
+    cases = {f"{name}_uhd": (fn, None) for name, fn, _, _, _ in _row_specs(
+        y, uv, seg, planes, sid, inner, lf, on)}
+    for name, fn, pfn, _, _ in _row_specs(
+            top(y, 64), top(uv, 32), seg,
+            [top(p, r) for p, r in zip(planes, (64, 32, 32))], sid[:n],
+            inner[:n], lf, on[:n]):
+        cases[f"{name}_uhd_strip"] = (fn, pfn)
+    return cases
 
 
 if __name__ == "__main__":

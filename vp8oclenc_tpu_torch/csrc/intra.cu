@@ -23,10 +23,16 @@
 //     (bx+1, by-1) is done (at the right edge: the row's last block), which
 //     the warps tell each other through counters in shared memory.  A
 //     block's source pixels and the pixel lines it predicts from are in
-//     shared memory (the row's 16 source lines, staged with 16-byte loads
-//     before the walk; the line above the MB row and each block row's
-//     bottom line); its left neighbours are the warp's previous result, in
+//     shared memory; its left neighbours are the warp's previous result, in
 //     registers.
+//   * The source is a ring of kLumaRing block columns (the row's 16 lines
+//     of them), not the whole width: warp 3 trails warp 0 by 6 blocks, so
+//     only a window of columns is ever live.  Warp 7 stages an MB's 16
+//     source lines (16-byte loads) into the ring as soon as warp 3 has
+//     released the columns they replace, up to the ring ahead of warp 0.
+//     The pixel lines (the line above the MB row and each block row's
+//     bottom line, 5 lines of w4+1 words) stay whole: 82 KB at 16384
+//     pixels, within a CTA's shared memory at every VP8 width.
 //   * A block is spread over the warp (`search_and_code_warp`): the
 //     predictor values one a lane, the ten mode costs one a lane, the
 //     earliest minimum by one warp reduction, the winner coded by every
@@ -47,11 +53,11 @@
 //     waits for nothing.  No co-residency is needed: 3840x2160 has 135 MB
 //     rows on 132 SMs.  The counters and the ticket are scratch that the
 //     caller hands in zeroed.  No barrier spans the frame.
-//   * ptxas (sm_90a, CUDA 12.8): 56 registers, no spills, 720 bytes of
-//     static shared memory; dynamic (16*w4 + 5*(w4+1)) words, 40 KB at 1920
-//     wide.  On an NVIDIA H100 80GB HBM3 (700 W) a 1920x1088 frame takes
-//     1.5 ms (the one-CTA kernel it replaces: 9.5 ms); PERF.md has the
-//     measurements.
+//   * Dynamic shared memory is (16*kLumaRing + 5*(w4+1)) words, 13.7 KB at
+//     1920 wide and 86 KB at 16384.  Staging the row's 16 source lines
+//     across the whole width ((16*w4 + 5*(w4+1)) words) would not fit a
+//     CTA above 11056 pixels.  PERF.md has the measurements on an NVIDIA
+//     H100 80GB HBM3.
 //
 // Chroma (`chroma_rows_kernel`): the same row pipeline, one CTA per chroma
 // MB row, rows drawn from an atomic ticket, both planes in one CTA.
@@ -323,17 +329,35 @@ __device__ __forceinline__ void unpack4(uint32_t w, int* p) {
 
 // Warps 0..3 code the four 4x4-block rows of an MB row; warp 4 fetches the
 // pixel line above the MB row from the row above's output; warp 5 writes
-// the row's own bottom pixel line out and publishes it to the row below.
-constexpr int kRowThreads = 192;
+// the row's own bottom pixel line out and publishes it to the row below;
+// warp 7 stages the source, on the SM sub-partition (warp index modulo 4)
+// of coding warp 3 rather than of warp 2, and backs off between polls;
+// warp 6 has no work.
+constexpr int kRowThreads = 256;
+// Block columns of source in the ring: a power of two, at least 16 (warp
+// 0 may need column bx+1 staged while warp 3, 6 blocks behind, holds
+// column bx-6, and the ring takes whole MBs).
+constexpr int kLumaRing = 64;
+static_assert(kLumaRing >= 16 && (kLumaRing & (kLumaRing - 1)) == 0,
+              "the luma source ring");
+constexpr unsigned kStageBackoffNs = 256;
+
+// Dynamic shared memory of a luma_rows_kernel CTA: the source ring, then
+// 5 pixel lines of w4+1 words.
+__host__ __device__ constexpr int luma_smem(int w4) {
+  return (16 * kLumaRing + 5 * (w4 + 1)) * 4;
+}
 
 // One CTA per MB row; warp w < 4 walks block row by = 4*row + w left to
-// right.  Shared memory: the row's 16 source lines, then 5 lines of w4+1
+// right.  Shared memory: the source ring, 16 lines of KB words (block
+// column bx's word of line l at l*KB + bx % KB), then 5 lines of w4+1
 // words: line 0 is the pixel line above the MB row (127s in the top row;
 // its last word replicates the frame's last pixel, the VP8 rule for the
 // above-right of the last block column), line k+1 the bottom pixel line
 // of block row k; then each warp's predictor values.  s_prog[k] counts
-// the words of line k that are final.  sync: mbh progress counters and the
-// row ticket, all 0 at launch.
+// the words of line k that are final; s_prog[4] also frees the ring's
+// columns.  s_staged counts the block columns in the ring.  sync: mbh
+// progress counters and the row ticket, all 0 at launch.  KB: kLumaRing.
 __global__ void __launch_bounds__(kRowThreads)
     luma_rows_kernel(const uint8_t* __restrict__ y, uint8_t* rec,
                      int16_t* levels, int8_t* modes, int* sync, int w4,
@@ -342,24 +366,49 @@ __global__ void __launch_bounds__(kRowThreads)
   extern __shared__ uint4 smem[];
   __shared__ int s_row;
   __shared__ int s_prog[5];
+  __shared__ int s_staged;
   __shared__ int s_vals[4][kPredVals];
   if (threadIdx.x == 0) s_row = atomicAdd(sync + mbh, 1);
   __syncthreads();
   const int r = s_row;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int KB = kLumaRing, mask = KB - 1;
   const int W = w4 * 4, lp = w4 + 1;
-  uint32_t* src = reinterpret_cast<uint32_t*>(smem);          // 16 x w4
-  uint32_t* ln = src + 16 * w4;                               // 5 x lp
-  {
-    const uint4* g = reinterpret_cast<const uint4*>(y + (size_t)r * 16 * W);
-    for (int i = threadIdx.x; i < 4 * w4; i += kRowThreads)
-      smem[i] = __ldg(g + i);
-    if (r == 0)
-      for (int i = threadIdx.x; i < lp; i += kRowThreads) ln[i] = 0x7f7f7f7fu;
-    if (threadIdx.x < 5)
-      s_prog[threadIdx.x] = threadIdx.x == 0 && r == 0 ? w4 : 0;
-  }
+  uint32_t* src = reinterpret_cast<uint32_t*>(smem);          // 16 x KB
+  uint32_t* ln = src + 16 * KB;                               // 5 x lp
+  if (r == 0)
+    for (int i = threadIdx.x; i < lp; i += kRowThreads) ln[i] = 0x7f7f7f7fu;
+  if (threadIdx.x < 5)
+    s_prog[threadIdx.x] = threadIdx.x == 0 && r == 0 ? w4 : 0;
+  if (threadIdx.x == 5) s_staged = 0;
   __syncthreads();
+
+  if (warp == 6) return;
+  if (warp == 7) {
+    // The source, 2 MBs (8 block columns, a load per lane) at a time: MB
+    // m's columns go into the ring once warp 3 has released the columns
+    // KB before them.
+    const uint4* g = reinterpret_cast<const uint4*>(y + (size_t)r * 16 * W);
+    int have = 0;                             // block columns staged
+    while (have < w4) {
+      int freed = 0;
+      if (lane == 0)
+        while ((freed = *(const volatile int*)(s_prog + 4)) <= have + 3 - KB)
+          __nanosleep(kStageBackoffNs);
+      freed = __shfl_sync(0xffffffffu, freed, 0);
+      __syncwarp();
+      const int room = min(min(w4, (freed + KB) & ~3), have + 8);
+      const int n = (room - have) / 4;        // MBs
+      if (lane < 16 * n) {
+        const int l = lane / n, c = have + 4 * (lane % n);
+        reinterpret_cast<uint4*>(src + l * KB + (c & mask))[0] =
+            __ldg(g + (size_t)l * (W / 16) + c / 4);
+      }
+      post<false>(&s_staged, room, lane);
+      have = room;
+    }
+    return;
+  }
 
   if (warp == 4) {
     // The row above's bottom line into line 0, as far as that row has
@@ -405,16 +454,19 @@ __global__ void __launch_bounds__(kRowThreads)
   const uint32_t* tab = kPredTab[lane < 10 ? lane : 0];
   const uint32_t tb[4] = {tab[0], tab[1], tab[2], tab[3]};
   int seen = 0;                               // s_prog[warp], as last read
+  int staged = 0;                             // s_staged, as last read
   uint32_t wl = 0x81818181u;                  // left of the frame: 129
   for (int bx = 0; bx < w4; ++bx) {
     // block (bx, by) needs (bx+1, by-1): the above-right neighbour
     const int need = bx + 2 < w4 ? bx + 2 : w4;
     if (seen < need) seen = wait_above<false>(s_prog + warp, need - 1, lane);
+    if (staged <= bx) staged = wait_above<false>(&s_staged, bx, lane);
     const uint32_t a03 = up[bx];
     const uint32_t a47 = (bx & 3) < 3 || warp == 0 ? up[bx + 1] : ln[bx + 1];
     const int P = by == 0 ? 127 : (bx == 0 ? 129 : (int)(up[bx - 1] >> 24));
     int s[16];
-    for (int k = 0; k < 4; ++k) unpack4(src[(4 * warp + k) * w4 + bx], s + 4 * k);
+    for (int k = 0; k < 4; ++k)
+      unpack4(src[(4 * warp + k) * KB + (bx & mask)], s + 4 * k);
 
     int lev[16], out[16];
     const int best = search_and_code_warp(s, wl, a03, a47, P, dc_q, ac_q, lane,
@@ -771,10 +823,10 @@ __global__ void __launch_bounds__(kTrialWarps * 32)
 }  // namespace
 
 // Dynamic shared memory of one luma_rows_kernel CTA for a luma plane
-// `width` pixels wide: the MB row's 16 lines and 5 lines of one word more.
+// `width` pixels wide: the source ring and 5 lines of one word more than
+// the width.
 extern "C" int vp8_luma_smem(int width) {
-  const int w4 = width / 4;
-  return (16 * w4 + 5 * (w4 + 1)) * 4;
+  return luma_smem(width / 4);
 }
 
 // Dynamic shared memory of one chroma_rows_kernel CTA for chroma planes
@@ -786,7 +838,9 @@ extern "C" int vp8_chroma_smem(int width) {
 extern "C" int vp8_luma_wavefront(const void* y, void* recon, void* levels,
                                   void* modes, void* sync, int w4, int h4,
                                   int dc_q, int ac_q, void* stream) {
-  const int smem = vp8_luma_smem(4 * w4);
+  if (w4 <= 0 || w4 % 4 || h4 <= 0 || h4 % 4)
+    return (int)cudaErrorInvalidValue;
+  const int smem = luma_smem(w4);
   cudaError_t e = cudaFuncSetAttribute(
       luma_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) {

@@ -210,6 +210,18 @@ def encode_frame_header(fd, seg, cfg, width: int, height: int) -> bytes:
     return head + body
 
 
+# the frame tag's first-partition size field has 19 bits
+FIRST_PARTITION_LIMIT = 1 << 19
+
+
+def tag_first_partition_size(frame: bytes) -> int:
+    """The first partition's size as a frame's tag states it: bits 5..23
+    of the 3-byte tag, so a partition of FIRST_PARTITION_LIMIT bytes or
+    more is stated modulo that limit (the writer above, like the JAX
+    package's, does not refuse one)."""
+    return (frame[0] | frame[1] << 8 | frame[2] << 16) >> 5
+
+
 def _collect_new_mv_deltas(fd, census) -> np.ndarray:
     """All MV deltas that will be coded as NEW (16x16 NEWMV or SPLITMV NEW4x4)."""
     deltas = []

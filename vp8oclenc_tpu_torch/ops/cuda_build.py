@@ -35,6 +35,7 @@ _SIGNATURES = {
     "loopfilter": {
         "vp8_loop_filter": [_P] * 16 + [_I, _I, _P],
         "vp8_filter_smem": [_I],
+        "vp8_filter_ring": [_I],
     },
     "search": {
         "vp8_fullpel_search": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -128,38 +129,6 @@ def library(name: str) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             _libs[name] = lib
         return lib
-
-
-def widest_plane(need, limit: int, width: int) -> int:
-    """The widest multiple of 16 up to `width` whose dynamic shared memory
-    `need(w)` (bytes, growing with w) fits in `limit`; 0 if none."""
-    while width > 0 and need(width) > limit:
-        width -= 16
-    return max(width, 0)
-
-
-def refuse_wide(what: str, need, width: int, limit: int) -> None:
-    """Raise if a row kernel's dynamic shared memory for a plane `width`
-    pixels wide, need(width) bytes, is more than `limit`, naming the
-    widest plane the kernel takes."""
-    if need(width) > limit:
-        raise ValueError(
-            f"{what}: a plane {width} pixels wide needs {need(width)} bytes "
-            f"of shared memory a CTA, more than the {limit} this card "
-            f"allows; the widest plane it takes is "
-            f"{widest_plane(need, limit, width)} pixels")
-
-
-def check_row_kernel(rc: int, what: str, smem, width: int, device) -> None:
-    """`check` for a row kernel's launcher, whose CTA stages lines of the
-    plane's width: where the launch failed and smem(width), the library's
-    own count (`vp8_*_smem`), is more than a CTA of the card may opt into,
-    the error names that limit and the widest plane the kernel takes."""
-    if rc != 0:
-        import torch
-        refuse_wide(what, smem, width, torch.cuda.get_device_properties(
-            device).shared_memory_per_block_optin)
-    check(rc, what)
 
 
 def check(rc: int, what: str) -> None:

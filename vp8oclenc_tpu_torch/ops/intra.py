@@ -252,8 +252,7 @@ def luma_wavefront(y: torch.Tensor, dc_q: int, ac_q: int):
     rc = lib.vp8_luma_wavefront(
         _ptr(y), _ptr(recon), _ptr(levels), _ptr(modes), _ptr(sync), W // 4,
         H // 4, int(dc_q), int(ac_q), _stream(y))
-    cuda_build.check_row_kernel(rc, "vp8_luma_wavefront", lib.vp8_luma_smem,
-                                W, y.device)
+    cuda_build.check(rc, "vp8_luma_wavefront")
     luma_wavefront.launches += 1
     return recon, levels, modes
 
@@ -284,8 +283,7 @@ def chroma_wavefront(uv: torch.Tensor, dc_q: int, ac_q: int):
     rc = lib.vp8_chroma_wavefront(
         _ptr(uv), _ptr(recon), _ptr(levels), _ptr(sync), W2 // 8, H2 // 8,
         int(dc_q), int(ac_q), _stream(uv))
-    cuda_build.check_row_kernel(rc, "vp8_chroma_wavefront",
-                                lib.vp8_chroma_smem, W2, uv.device)
+    cuda_build.check(rc, "vp8_chroma_wavefront")
     chroma_wavefront.launches += 1
     return recon, levels
 

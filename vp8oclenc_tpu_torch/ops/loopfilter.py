@@ -239,8 +239,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def filter_planes(ry, ru, rv, seg_of_mb, inner_mask, levels, mbe, sbe, intr,
                   hev):
     """Loop filter (contract of `filter_planes_plain`): the
-    csrc/loopfilter.cu kernel for CUDA planes, the plain version for CPU
-    planes."""
+    csrc/loopfilter.cu kernels for CUDA planes (the full-row kernel where
+    the row fits a CTA, the ring kernel above that), the plain version for
+    CPU planes."""
     if ry.device.type == "cpu":
         return filter_planes_plain(ry, ru, rv, seg_of_mb, inner_mask, levels,
                                    mbe, sbe, intr, hev)
@@ -254,7 +255,7 @@ filter_planes.launches = 0
 def filter_band(ry, ru, rv, halo, seg_of_mb, inner_mask, levels, mbe, sbe,
                 intr, hev):
     """Band loop filter (contract of `filter_band_plain`): the
-    csrc/loopfilter.cu kernel for CUDA planes, the plain version for CPU
+    csrc/loopfilter.cu kernels for CUDA planes, the plain version for CPU
     planes.  Counted in `filter_planes.launches` and in
     `filter_band.launches`."""
     if ry.device.type == "cpu":
@@ -313,7 +314,6 @@ def _launch(ry, ru, rv, halo, seg_of_mb, inner_mask, levels, mbe, sbe, intr,
         *map(p, src), *map(p, out), *map(p, hal), *map(p, wb), p(seg),
         p(inner), p(lf), p(sync), W // 16, H // 16,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    cuda_build.check_row_kernel(rc, "vp8_loop_filter", lib.vp8_filter_smem,
-                                W, dev)
+    cuda_build.check(rc, "vp8_loop_filter")
     filter_planes.launches += 1
     return tuple(out), None if halo is None else tuple(wb)

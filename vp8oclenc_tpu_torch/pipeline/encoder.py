@@ -104,6 +104,9 @@ class EntropyCoder:
         self.mbh = ((height + 15) & ~15) // 16
         self.mbc = self.mbw * self.mbh
         self._pool = None              # lazy per-partition packing pool
+        # the last frame's first partition in bytes, as written: the frame
+        # tag states it in 19 bits (header.tag_first_partition_size)
+        self.first_partition_bytes = 0
 
     def _executor(self):
         if self._pool is None:
@@ -166,6 +169,7 @@ class EntropyCoder:
                     partitions.append(pack_bools(p, b))
 
         header = encode_frame_header(fd, seg, cfg, self.width, self.height)
+        self.first_partition_bytes = len(header) - (10 if fd.is_key else 3)
         out = bytearray(header)
         for part in partitions[:-1]:
             n = len(part)
@@ -259,6 +263,7 @@ class Encoder:
                                   self.backend.device.type == "cuda")
         self.last_frame_stats = {
             "is_key": fd.is_key, "replaced": fd.replaced,
+            "first_partition_bytes": self.entropy.first_partition_bytes,
             "ssim_min_fx": getattr(fd, "ssim_min_fx", None),
             "ssim_sum_fx": getattr(fd, "ssim_sum_fx", None)}
         return out
