@@ -30,7 +30,12 @@ Phases (any failure exits non-zero before the result line):
      against its plain version at 8160 MBs, at the AQ, HQ and UQ quantizers
      of -qmin 50 -qmax 112, on neighbours cut from a keyframe-coded plane
      and on random sources and neighbours with all-0 and all-255 MBs, and
-     at 1, 7 and 8161 MBs; outputs must be bit-identical; kernels are timed
+     at 1, 7 and 8161 MBs; then the integer per-MB SSIM kernel against its
+     plain version in every operand form its callers pass (whole planes
+     with an int32 and a u8 recon, per-MB patches, non-contiguous views of
+     the planes), with edge MBs (identical, flat, all 0 against all 255,
+     all 255 against both), at 1920x1088, 3840x2160 and 16384x128, and at
+     1, 7 and 8161 MBs; outputs must be bit-identical; kernels are timed
      by the card's clock (`cuda_ms`), plain versions with CUDA events
      around one call (`span_ms`);
   4. all-keyframe path: 10 synthetic 1920x1080 frames through
@@ -41,14 +46,16 @@ Phases (any failure exits non-zero before the result line):
   5. default-GOP path: 10 frames of a panned canvas with gop_size=150,
      altref_range=5 (1 keyframe, then inter frames over LAST, GOLDEN and
      ALTREF), counters as in 4; at least 8 inter frames, every kernel
-     launched, some vectors nonzero and GOLDEN or ALTREF chosen somewhere;
+     launched (the SSIM kernel once per inter frame), some vectors nonzero
+     and GOLDEN or ALTREF chosen somewhere;
      the inter device-chain time and the sequential host split; the first 3
      frames again on the CPU, whose bytes must be identical;
   6. SSIM-target path: 10 frames of static noise with 200 regions of 32x32
      that get a fresh smooth gradient every frame, constant chroma, at
      -qmin 50 -qmax 112 -SSIM-target 98, gop_size=150: at least 8 inter
-     frames, the luma trial kernel launched 3 times per inter frame, some
-     MBs replaced on some frame and never more than a sixth, more than one
+     frames, the luma trial kernel launched 3 times per inter frame and
+     the SSIM kernel 7 times (4 segment passes, 3 trials), some MBs
+     replaced on some frame and never more than a sixth, more than one
      segment in use, no frame done again as a key; an SSIM-on inter frame
      dispatched with stream synchronization an error; the inter
      device-chain time and the host split; the first 3 frames again on the
@@ -120,11 +127,13 @@ Phases (any failure exits non-zero before the result line):
      partition printed against the frame tag's 19-bit field, fps, device
      chains and host split; a `wide` JSON line;
   14. a `kernels` JSON line (each kernel with its launches on the
-     multi-rank path and, for the three with one, its shard or band
-     mode's time, bound and launches; its UHD and wide records, the
-     latter with the 8K stream's launches and, for the filter and luma,
-     their card ms at 1080p, UHD and 8K), the nvidia-smi line, and as the
-     last line {"ok": true, "device": {...}}.
+     default-GOP path, the trial's on the SSIM-target path, the SSIM
+     kernel's on both; its launches on the multi-rank path and, for the
+     three with one, its shard or band mode's time, bound and launches;
+     its UHD and wide records, the latter with the 8K stream's launches
+     and, for the filter and luma, their card ms at 1080p, UHD and 8K),
+     the nvidia-smi line, and as the last line {"ok": true, "device":
+     {...}}.
 """
 from __future__ import annotations
 
@@ -225,6 +234,12 @@ OPS_C4 = 12
 OPS_CAND_STAGED = 4 * (4 * (OPS_C4 + 4) + 16 + 16 + 7) + 15
 OPS_WINDOW_COLUMNS = 9 * 12 * OPS_C4
 OPS_SIXTAP_INT, OPS_SIXTAP_MAC8 = 4, 6
+# The integer SSIM: five sums a pixel pair (two adds, three multiply-adds);
+# an MB reduces its 15 sums over 5 shuffle rounds (a shuffle and an add
+# each) and scores three planes: two 15-step divisions (~4 a step) and ~40
+# for the variances, terms, sign, product and penalty each
+OPS_SSIM_PIXEL = 5
+OPS_SSIM_MB = 15 * 5 * 2 + 3 * (2 * 15 * 4 + 40)
 QPEL_HPASS_FILTERED, QPEL_HPASS_COPIED = 4 * 14 * 8, 14 * 8
 
 
@@ -850,6 +865,108 @@ def phase_trial(dev):
     return {"trial_luma": row}
 
 
+def _ssim_inputs(mbw, mbh, seed, dev):
+    """Source planes (u8) and a recon (int32) of mbw x mbh MBs: a textured
+    source, the recon the source plus noise, and edge MBs at the start:
+    identical source and recon (every L and CS division at a == d), flat
+    against flat, all 0 against all 255, all 255 against all 255 and
+    all 255 against all 0."""
+    rng = np.random.default_rng(seed)
+    H, W = 16 * mbh, 16 * mbw
+    src = [synth_plane(rng, h, w, seed)
+           for h, w in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
+    rec = [(p.astype(np.int32) + rng.integers(-12, 13, p.shape)).clip(0, 255)
+           for p in src]
+    for k, pair in enumerate([None, (100, 100), (0, 255), (255, 255),
+                              (255, 0)][:mbw * mbh]):
+        for s, r, n in zip(src, rec, (16, 8, 8)):
+            cut = np.s_[(k // mbw) * n:(k // mbw + 1) * n,
+                        (k % mbw) * n:(k % mbw + 1) * n]
+            if pair is None:
+                r[cut] = s[cut]
+            else:
+                s[cut], r[cut] = pair
+    return ([torch.from_numpy(a).to(dev) for a in src],
+            [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+             for a in rec])
+
+
+def _ssim_forms(src, rec):
+    """The operand forms the callers pass, as (label, wrapper, plain,
+    args): the inter path's whole planes (u8 source, int32 recon), the
+    same with a u8 recon, the trial path's per-MB patches (u8 luma source
+    and recon, chroma source cut by `_plane_mb`, int32 chroma recon), and
+    non-contiguous (mbh, mbw, n, n) views of the planes."""
+    from vp8oclenc_tpu_torch import ssim_fx as S
+    from vp8oclenc_tpu_torch.ops import intra_replace as IR
+    planes = [t for pair in zip(src, rec) for t in pair]
+    u8 = [t.to(torch.uint8) for t in planes]
+    patches = [IR._plane_mb(t, n).contiguous()
+               for t, n in zip(u8[:2], (16, 16))]
+    for s_, r_ in zip(src[1:], rec[1:]):
+        patches += [IR._plane_mb(s_, 8), IR._plane_mb(r_, 8).contiguous()]
+    views = [t.reshape(t.shape[0] // n, n, t.shape[1] // n, n).transpose(1, 2)
+             for t, n in zip(planes, (16, 16, 8, 8, 8, 8))]
+    return [("planes, int32 recon", S.mb_ssim_fx, S.mb_ssim_fx_plain, planes),
+            ("planes, u8 recon", S.mb_ssim_fx, S.mb_ssim_fx_plain, u8),
+            ("patches", S.mb_ssim_fx_16x16, S.mb_ssim_fx_16x16_plain,
+             patches),
+            ("plane views", S.mb_ssim_fx_16x16, S.mb_ssim_fx_16x16_plain,
+             views)]
+
+
+def _ssim_same(what, src, rec):
+    """Every form of `_ssim_forms` against its plain version, bit-exact."""
+    for label, fn, plain, args in _ssim_forms(src, rec):
+        err = max_abs_err([fn(*args)], [plain(*args)])
+        if err:
+            raise AssertionError(f"mb_ssim ({what}, {label}): kernel differs "
+                                 f"from its plain version by {err}")
+
+
+def _ssim_record(what, src, rec):
+    """The kernel on whole planes (the inter path's form) timed by the
+    card's clock, the plain version by events, and the bound: each u8
+    source and int32 recon byte read once, 4 bytes an MB written."""
+    from vp8oclenc_tpu_torch import ssim_fx as S
+    planes = [t for pair in zip(src, rec) for t in pair]
+    mbc = src[0].numel() // 256
+    ms = cuda_ms(lambda: S.mb_ssim_fx(*planes), reps=20)
+    _, pms = _plain(lambda: S.mb_ssim_fx_plain(*planes))
+    nbytes = sum(t.numel() * t.element_size() for t in planes) + 4 * mbc
+    bms, by = bound(nbytes, mbc * (384 * OPS_SSIM_PIXEL + OPS_SSIM_MB))
+    log(f"  mb_ssim ({what}, {mbc} MBs): bit-exact in every form, kernel "
+        f"{ms:.4f} ms, plain {pms:.1f} ms, bound {bms:.5f} ms ({by}), share "
+        f"{bms / ms:.4f}")
+    return {"shape": what, "max_abs_err": 0, "ms": ms, "plain_ms": pms,
+            "bound_ms": bms, "bound_by": by, "share": bms / ms}
+
+
+def phase_ssim(dev):
+    """The integer per-MB SSIM kernel against its plain version, bit-exact,
+    in every operand form its callers pass (`_ssim_forms`) with edge MBs
+    (`_ssim_inputs`): at 1920x1088 (8160 MBs), 3840x2160 (32400) and
+    16384x128 (8192, 1024 MB columns), each timed with its bound, and at
+    1, 7 and 8161 MBs in one row.  Returns (the 1080p row, the UHD record,
+    the wide record)."""
+    rows = {}
+    for label, (mbw, mbh) in (("1920x1088", (W // 16, (H + 15) // 16)),
+                              ("3840x2160", (UHD_W // 16, UHD_H // 16)),
+                              (f"{WIDEST_W}x{WIDEST_H}",
+                               (WIDEST_W // 16, WIDEST_H // 16))):
+        src, rec = _ssim_inputs(mbw, mbh, mbw + mbh, dev)
+        _ssim_same(label, src, rec)
+        rows[label] = _ssim_record(label, src, rec)
+    for n in (1, 7, W // 16 * ((H + 15) // 16) + 1):
+        _ssim_same(f"{n} MBs in a row", *_ssim_inputs(n, 1, n, dev))
+    log("  mb_ssim at 1, 7 and 8161 MBs in a row: bit-exact in every form")
+    row = rows["1920x1088"]
+    return ({"max_abs_err": 0, "ms": [row["ms"]],
+             "plain_ms": [row["plain_ms"]], "bound_ms": [row["bound_ms"]],
+             "bound_by": row["bound_by"]},
+            rows["3840x2160"], rows[f"{WIDEST_W}x{WIDEST_H}"])
+
+
 def phase_end_to_end(dev):
     from vp8oclenc_tpu_torch.config import EncoderConfig
     from vp8oclenc_tpu_torch.io.y4m import pad_frame
@@ -929,6 +1046,7 @@ def phase_end_to_end(dev):
 def phase_default_gop(dev):
     """The default encode: gop_size=150, altref_range=5, SSIM control off,
     10 frames of the panned canvas (1 keyframe, then inter frames)."""
+    from vp8oclenc_tpu_torch import ssim_fx as S
     from vp8oclenc_tpu_torch.config import EncoderConfig
     from vp8oclenc_tpu_torch.ops import inter as IN
     from vp8oclenc_tpu_torch.ops import intra as I
@@ -947,7 +1065,8 @@ def phase_default_gop(dev):
                 "chroma_wavefront": I.chroma_wavefront,
                 "loop_filter": LF.filter_planes,
                 "fullpel_search": IN.fullpel_search,
-                "qpel_search": IN.qpel_search}
+                "qpel_search": IN.qpel_search,
+                "mb_ssim": S.mb_ssim_cuda}
     enc = Encoder(EncoderConfig(**cfg), W, H, device=dev)
     for c in counters.values():
         c.launches = 0
@@ -969,6 +1088,10 @@ def phase_default_gop(dev):
         if n <= 0:
             raise AssertionError(f"{name} was never launched on the "
                                  f"default-GOP path")
+    if launches["mb_ssim"] != n_inter:
+        raise AssertionError(f"mb_ssim was launched {launches['mb_ssim']} "
+                             f"times for {n_inter} inter frames, not once "
+                             f"each")
     gaps = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     log(f"  {N_FRAMES} frames {W}x{H} gop 150 ({n_inter} inter) in "
         f"{dt:.3f} s: {N_FRAMES / dt:.3f} fps end to end, median frame "
@@ -1031,6 +1154,7 @@ def phase_default_gop(dev):
 
 
 def _counters():
+    from vp8oclenc_tpu_torch import ssim_fx as S
     from vp8oclenc_tpu_torch.ops import inter as IN
     from vp8oclenc_tpu_torch.ops import intra as I
     from vp8oclenc_tpu_torch.ops import intra_replace as IR
@@ -1040,7 +1164,8 @@ def _counters():
             "loop_filter": LF.filter_planes,
             "fullpel_search": IN.fullpel_search,
             "qpel_search": IN.qpel_search,
-            "trial_luma": IR.trial_luma}
+            "trial_luma": IR.trial_luma,
+            "mb_ssim": S.mb_ssim_cuda}
 
 
 def _same_as_cpu(what, cfg, frames, out, depth=3, w=W, h=H):
@@ -1119,6 +1244,10 @@ def phase_ssim_target(dev):
         raise AssertionError(f"trial_luma was launched "
                              f"{launches['trial_luma']} times for {n_inter} "
                              f"inter frames, not 3 each")
+    # four segment passes and three trials an inter frame
+    if launches["mb_ssim"] != 7 * n_inter:
+        raise AssertionError(f"mb_ssim was launched {launches['mb_ssim']} "
+                             f"times for {n_inter} inter frames, not 7 each")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was never launched on the "
@@ -1901,7 +2030,8 @@ GLOBAL_KERNELS = {"luma_wavefront": "luma_rows_kernel",
                   "chroma_wavefront": "chroma_rows_kernel",
                   "fullpel_search": "fullpel_kernel",
                   "qpel_search": "qpel_kernel",
-                  "trial_luma": "trial_luma_kernel"}
+                  "trial_luma": "trial_luma_kernel",
+                  "mb_ssim": "mb_ssim_kernel"}
 
 
 def global_kernel(name, width):
@@ -2310,6 +2440,8 @@ def main() -> int:
     rows.update(phase_search(dev))
     log("[kernels] luma trial kernel vs plain version, 8160 MBs")
     rows.update(phase_trial(dev))
+    log("[kernels] integer SSIM kernel vs plain version, 8160 MBs")
+    rows["mb_ssim"], ssim_uhd, ssim_wide = phase_ssim(dev)
     log(f"[time] {time.monotonic() - t0:.0f} s")
     log("[end-to-end] Encoder.encode_frames, gop_size=1")
     g1_launches = phase_end_to_end(dev)
@@ -2319,7 +2451,8 @@ def main() -> int:
     log(f"  all-keyframe path launches: {json.dumps(g1_launches)}")
     log(f"[time] {time.monotonic() - t0:.0f} s")
     log("[end-to-end] Encoder.encode_frames, SSIM target")
-    launches["trial_luma"] = phase_ssim_target(dev)["trial_luma"]
+    ssim_launches = phase_ssim_target(dev)
+    launches["trial_luma"] = ssim_launches["trial_luma"]
     log(f"[time] {time.monotonic() - t0:.0f} s")
     log("[end-to-end] redo-as-key with frames in flight")
     phase_redo(dev)
@@ -2338,6 +2471,7 @@ def main() -> int:
     log(f"[time] {time.monotonic() - t0:.0f} s")
     log(f"[uhd] the six kernels at {UHD_W}x{UHD_H} vs plain versions")
     uhd_rows = phase_uhd_kernels(dev)
+    uhd_rows["mb_ssim"] = ssim_uhd
     log(f"[time] {time.monotonic() - t0:.0f} s")
     log(f"[uhd] Encoder.encode_frames at {UHD_W}x{UHD_H}, 4 partitions, 6 "
         f"threads: default GOP, SSIM target; 4 ranks over 2 x 2 row tiles")
@@ -2346,6 +2480,7 @@ def main() -> int:
     log(f"[wide] the six kernels at {WIDEST_W}x{WIDEST_H}, the filter and "
         f"luma at {WIDE_W}x{WIDE_STRIP_H} and timed at {WIDE_W}x{WIDE_H}")
     wide_rows = phase_wide_kernels(dev)
+    wide_rows["mb_ssim"] = ssim_wide
     log(f"[time] {time.monotonic() - t0:.0f} s")
     log(f"[wide] Encoder.encode_frames at {WIDE_W}x{WIDE_STRIP_H} against "
         f"the CPU, and {N_WIDE_FRAMES} frames of {WIDE_W}x{WIDE_H}, 4 "
@@ -2358,13 +2493,16 @@ def main() -> int:
            "loop_filter": "vp8oclenc_tpu_torch/csrc/loopfilter.cu",
            "fullpel_search": "vp8oclenc_tpu_torch/csrc/search.cu",
            "qpel_search": "vp8oclenc_tpu_torch/csrc/search.cu",
-           "trial_luma": "vp8oclenc_tpu_torch/csrc/intra.cu"}
+           "trial_luma": "vp8oclenc_tpu_torch/csrc/intra.cu",
+           "mb_ssim": "vp8oclenc_tpu_torch/csrc/ssim.cu"}
     replaces = {"luma_wavefront": "vp8oclenc_tpu/ops/pallas_intra.py:309",
                 "chroma_wavefront": "vp8oclenc_tpu/ops/pallas_intra.py:580",
                 "loop_filter": "vp8oclenc_tpu/ops/loopfilter.py:96",
                 "fullpel_search": "vp8oclenc_tpu/ops/pallas_kernels.py:265",
                 "qpel_search": "vp8oclenc_tpu/ops/pallas_kernels.py:396",
-                "trial_luma": "vp8oclenc_tpu/ops/pallas_intra.py:457"}
+                "trial_luma": "vp8oclenc_tpu/ops/pallas_intra.py:457",
+                "mb_ssim": "vp8oclenc_tpu/ssim_fx.py (XLA ops, no Pallas "
+                           "kernel)"}
     kernels = []
     for name, r in rows.items():
         kernels.append({
@@ -2378,6 +2516,8 @@ def main() -> int:
             "library_ms": None, "bit_exact": r["max_abs_err"] == 0})
         if "chain_ms" in r:
             kernels[-1]["chain_ms"] = statistics.median(r["chain_ms"])
+        if name == "mb_ssim":   # 1 a default-GOP inter frame, 7 SSIM-on
+            kernels[-1]["launches_ssim_target"] = ssim_launches[name]
         kernels[-1]["multirank_launches"] = multi[name]
         if name in modes:       # the kernel's row-shard or band mode
             mode = dict(modes[name], launches=multi[

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from vp8oclenc_tpu_torch import ssim_fx as S
 from vp8oclenc_tpu_torch.config import EncoderConfig
 from vp8oclenc_tpu_torch.io.y4m import Frame
 from vp8oclenc_tpu_torch.ops import inter as IN
@@ -232,14 +233,15 @@ def test_default_gop_stream_card_equals_cpu(dev):
     frames = _moving(w, h, 5, seed=4)
     cfg = dict(qi_min=8, qi_max=30, gop_size=100, altref_range=3)
     counters = (I.luma_wavefront, IN.fullpel_search, IN.qpel_search,
-                LF.filter_planes)
+                LF.filter_planes, S.mb_ssim_cuda)
     before = [c.launches for c in counters]
     gpu = Encoder(EncoderConfig(**cfg), w, h, device=dev)
     a = list(gpu.encode_frames(frames))
     gpu.close()
     after = [c.launches for c in counters]
-    # 1 keyframe, 4 inter frames: levels 3..0 hold blocks at 96x80
-    assert [y - x for x, y in zip(before, after)] == [1, 16, 4, 5]
+    # 1 keyframe, 4 inter frames: levels 3..0 hold blocks at 96x80; one
+    # SSIM launch an inter frame
+    assert [y - x for x, y in zip(before, after)] == [1, 16, 4, 5, 4]
     cpu = Encoder(EncoderConfig(**cfg), w, h, device="cpu")
     b = list(cpu.encode_frames(frames))
     cpu.close()
@@ -330,6 +332,71 @@ def test_trial_luma_edges_match_plain(dev, mbc):
         assert all(torch.equal(a, b) for a, b in zip(k, p)), q
 
 
+def _ssim_operands(mbw, mbh, seed, dev):
+    """Every operand form the SSIM's callers pass, as (wrapper, plain,
+    args): u8 source planes against an int32 and a u8 recon (the inter
+    path), per-MB patches (the trial path: u8 luma, chroma source cut by
+    `_plane_mb`, int32 chroma recon) and non-contiguous (mbh, mbw, n, n)
+    views of the planes.  The first MBs are edge blocks: identical source
+    and recon, flat against flat, all 0 against all 255, all 255 against
+    all 255 and against all 0."""
+    rng = np.random.default_rng(seed)
+    sizes = (16, 8, 8)
+    src = [rng.integers(0, 256, (mbh * n, mbw * n)).astype(np.uint8)
+           for n in sizes]
+    rec = [(s.astype(np.int32) + rng.integers(-9, 10, s.shape)).clip(0, 255)
+           for s in src]
+    for k, pair in enumerate([None, (100, 100), (0, 255), (255, 255),
+                              (255, 0)][:mbw * mbh]):
+        for s, r, n in zip(src, rec, sizes):
+            cut = np.s_[k // mbw * n:(k // mbw + 1) * n,
+                        k % mbw * n:(k % mbw + 1) * n]
+            if pair is None:
+                r[cut] = s[cut]
+            else:
+                s[cut], r[cut] = pair
+    planes = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for pair in zip(src, rec) for a in pair]
+    planes[1::2] = [t.to(torch.int32) for t in planes[1::2]]
+    u8 = [t.to(torch.uint8) for t in planes]
+    patches = [IR._plane_mb(t, 16).contiguous() for t in u8[:2]] + [
+        IR._plane_mb(t, 8) if i % 2 == 0 else IR._plane_mb(t, 8).contiguous()
+        for i, t in enumerate(planes[2:])]
+    views = [t.reshape(t.shape[0] // n, n, t.shape[1] // n, n).transpose(1, 2)
+             for t, n in zip(planes, (16, 16, 8, 8, 8, 8))]
+    assert mbw == 1 or not views[0].is_contiguous()
+    return [(S.mb_ssim_fx, S.mb_ssim_fx_plain, planes),
+            (S.mb_ssim_fx, S.mb_ssim_fx_plain, u8),
+            (S.mb_ssim_fx_16x16, S.mb_ssim_fx_16x16_plain, patches),
+            (S.mb_ssim_fx_16x16, S.mb_ssim_fx_16x16_plain, views)]
+
+
+@pytest.mark.parametrize("mbw,mbh", [(120, 68), (240, 135), (1, 1),
+                                     (7, 1), (8161, 1)])
+def test_mb_ssim_matches_plain(dev, mbw, mbh):
+    """The SSIM kernel bit-exact against its plain version at 1080p (8160
+    MBs), UHD (32400), and 1, 7 and 8161 MBs, in every operand form, one
+    launch a call."""
+    for fn, plain, args in _ssim_operands(mbw, mbh, mbw * mbh, dev):
+        before = S.mb_ssim_cuda.launches
+        k = fn(*args)
+        assert S.mb_ssim_cuda.launches == before + 1
+        p = plain(*args)
+        torch.cuda.synchronize()
+        assert k.dtype == p.dtype == torch.int32 and k.shape == p.shape
+        assert torch.equal(k, p)
+
+
+def test_mb_ssim_refuses_mixed_devices(dev):
+    y = torch.zeros((16, 16), dtype=torch.uint8)
+    c = torch.zeros((8, 8), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        S.mb_ssim_fx(y, y.to(dev), c, c, c, c)
+    with pytest.raises(ValueError):
+        S.mb_ssim_fx_16x16(*(t.to(dev) for t in (y, y, c, c, c)),
+                           c.to(torch.int16).to(dev))
+
+
 def _replacement(w, h, n, seed):
     """Static noise, constant chroma, and three 32x32 regions that get a
     fresh smooth gradient every frame: inter prediction fails there and
@@ -357,15 +424,17 @@ SSIM_CFG = dict(qi_min=50, qi_max=112, gop_size=100, ssim_target=0.98,
 def test_ssim_stream_card_equals_cpu(dev):
     w, h = 96, 80
     frames = _replacement(w, h, 5, seed=7)
-    before = IR.trial_luma.launches
+    before = IR.trial_luma.launches, S.mb_ssim_cuda.launches
     gpu = Encoder(EncoderConfig(**SSIM_CFG), w, h, device=dev)
     a, replaced = [], 0
     for payload in gpu.encode_frames(frames):
         a.append(payload)
         replaced += gpu.last_frame_stats["replaced"]
     gpu.close()
-    # 1 keyframe, 4 inter frames, three trials each, no redo
-    assert IR.trial_luma.launches == before + 12
+    # 1 keyframe, 4 inter frames, three trials each, no redo; the SSIM of
+    # four segment passes and three trials
+    assert IR.trial_luma.launches == before[0] + 12
+    assert S.mb_ssim_cuda.launches == before[1] + 28
     assert replaced > 0
     cpu = Encoder(EncoderConfig(**SSIM_CFG), w, h, device="cpu")
     b = list(cpu.encode_frames(frames))

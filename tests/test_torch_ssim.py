@@ -1,9 +1,11 @@
-"""The port's SSIM-controller modules (ssim_fx.mb_ssim_fx_16x16 and
+"""The port's SSIM-controller modules (ssim_fx.py and
 ops/intra_replace.py) against the JAX package's ssim_fx.py and
 ops/intra_replace.py on the same seeded inputs, bit for bit (tolerance 0).
 The JAX luma trial is `_trial_luma`, the XLA reference its Pallas kernel is
 held to; the port's is `trial_luma_plain`, the plain version its CUDA
-kernel is held to on the card (tests/test_torch_cuda.py)."""
+kernel is held to on the card (tests/test_torch_cuda.py).  Likewise the
+integer SSIM's wrappers run their plain versions here, which csrc/ssim.cu
+is held to on the card."""
 import numpy as np
 import pytest
 import torch
@@ -49,6 +51,104 @@ def test_target_and_uncoded_constants_match():
         assert TS.target_fx(t) == JS.target_fx(t)
         assert TS.fx_to_float(TS.target_fx(t)) == JS.fx_to_float(
             JS.target_fx(t))
+
+
+def test_divq15_saturates_at_one():
+    """The contract csrc/ssim.cu copies: floor(a * 32768 / d) for a < d,
+    and 32767 (not 32768) for a == d, up to the largest d2 of a 16x16
+    block (all 0 beside all 255 in both blocks)."""
+    rng = np.random.default_rng(3)
+    d = np.concatenate([[1, 2, 5, 100, 26634, 1067287269, (1 << 30) - 1],
+                        rng.integers(1, 1 << 30, 2000)]).astype(np.int64)
+    a = (rng.random(d.size) * d).astype(np.int64)       # 0 <= a < d
+    a[:4] = 0
+    a[4:7] = d[4:7] - 1
+    ti = lambda x: torch.from_numpy(x.astype(np.int32))
+    _eq(TS._divq15(ti(d), ti(d)), np.full(d.size, 32767), "a == d")
+    _eq(TS._divq15(ti(a), ti(d)), (a * 32768) // d, "a < d")
+
+
+def _ssim_edge_planes(mbw, mbh, seed):
+    """int32 numpy planes (y, ry, u, ru, v, rv) of mbw x mbh MBs: noise, a
+    recon near the source, and as the first MBs the edge blocks: identical
+    source and recon, flat against flat, all 0 against all 255, all 255
+    against all 255 and against all 0."""
+    rng = np.random.default_rng(seed)
+    src = [rng.integers(0, 256, (mbh * n, mbw * n)) for n in (16, 8, 8)]
+    rec = [(p + rng.integers(-9, 10, p.shape)).clip(0, 255) for p in src]
+    for k, pair in enumerate([None, (100, 100), (0, 255), (255, 255),
+                              (255, 0)][:mbw * mbh]):
+        for p, r, n in zip(src, rec, (16, 8, 8)):
+            cut = np.s_[k // mbw * n:(k // mbw + 1) * n,
+                        k % mbw * n:(k % mbw + 1) * n]
+            if pair is None:
+                r[cut] = p[cut]
+            else:
+                p[cut], r[cut] = pair
+    return [a.astype(np.int32) for pair in zip(src, rec) for a in pair]
+
+
+def _torch_operands(planes, rec_dtype):
+    """u8 source planes, recon planes in rec_dtype."""
+    return [torch.from_numpy(a).to(torch.uint8 if i % 2 == 0 else rec_dtype)
+            for i, a in enumerate(planes)]
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (7, 1), (61, 1), (5, 3)])
+@pytest.mark.parametrize("rec_dtype", [torch.uint8, torch.int32])
+def test_mb_ssim_planes_match(shape, rec_dtype):
+    """Whole planes, the inter path's form, through the wrapper's CPU path
+    against JAX (xp=jnp) and numpy; the edge MBs score as they must."""
+    planes = _ssim_edge_planes(*shape, seed=shape[0] * 10 + shape[1])
+    got = TS.mb_ssim_fx(*_torch_operands(planes, rec_dtype))
+    assert got.dtype == torch.int32
+    _eq(got, np_mb_ssim_fx(*planes), "numpy")
+    _eq(got, np_mb_ssim_fx(*(jnp.asarray(a) for a in planes), xp=jnp), "jax")
+    _eq(got, TS.mb_ssim_fx_plain(*_torch_operands(planes, rec_dtype)),
+        "plain")
+    if shape[0] * shape[1] >= 5:
+        # identical blocks: L and CS both saturate, 32767*32767 >> 15 a
+        # plane; flat against flat likewise; 0 against 255 pays the penalty
+        assert got[0] == got[1] == got[3] == 3 * 32766
+        assert got[2] < 0 and got[4] < 0
+
+
+@pytest.mark.parametrize("mbc", [1, 7, 61])
+@pytest.mark.parametrize("rec_dtype", [torch.uint8, torch.int32])
+def test_mb_ssim_patches_match(mbc, rec_dtype):
+    """Per-MB patches, the trial path's form: (mbc, n, n) cut by
+    `_plane_mb` from one MB row (a non-contiguous view there) and as a
+    contiguous copy, and (1, mbc, n, n) views of the planes, through the
+    wrapper's CPU path against JAX (xp=jnp) and numpy."""
+    planes = _ssim_edge_planes(mbc, 1, seed=mbc)
+    ts = _torch_operands(planes, rec_dtype)
+    sizes = (16, 16, 8, 8, 8, 8)
+    views = [TR._plane_mb(t, n) for t, n in zip(ts, sizes)]
+    if mbc > 1:
+        assert not views[0].is_contiguous()
+    patches = [np.asarray(v.to(torch.int32)) for v in views]
+    want = np_mb_ssim_fx(*planes)
+    _eq(np_mb_ssim_fx_16x16(*patches), want, "numpy patches")
+    _eq(np_mb_ssim_fx_16x16(*(jnp.asarray(a) for a in patches), xp=jnp),
+        want, "jax patches")
+    for form in (views, [v.contiguous() for v in views],
+                 [t.reshape(1, n, mbc, n).transpose(1, 2)
+                  for t, n in zip(ts, sizes)]):
+        got = TS.mb_ssim_fx_16x16(*form)
+        assert got.dtype == torch.int32
+        _eq(got.reshape(-1), want, "torch patches")
+
+
+def test_mb_ssim_refuses_mixed_devices_and_types():
+    y = torch.zeros((16, 16), dtype=torch.uint8)
+    c = torch.zeros((8, 8), dtype=torch.uint8)
+    meta = lambda t: t.to("meta")
+    with pytest.raises(ValueError):
+        TS.mb_ssim_fx(y, meta(y), c, c, c, c)
+    with pytest.raises(ValueError):
+        TS.mb_ssim_fx_16x16(*(meta(t) for t in (y, y, c, c, c, c)))
+    with pytest.raises(ValueError):
+        TS.mb_ssim_fx(y, y.to(torch.int16), c, c, c, c)
 
 
 def test_mb_ssim_16x16_matches():

@@ -20,7 +20,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("intra", "loopfilter", "search", "probe")
+SOURCES = ("intra", "loopfilter", "search", "ssim", "probe")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +42,9 @@ _SIGNATURES = {
                                _I, _P],
         "vp8_qpel_search": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _P],
+    },
+    "ssim": {
+        "vp8_mb_ssim": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     # not a kernel of the encoder: the integer-rate probe of chip_smoke.py
     "probe": {

@@ -302,6 +302,7 @@ def encode_frames_multirank(cfg: EncoderConfig, frames, width: int,
 
 def launch_counts() -> dict:
     """This process's kernel launch counters, by kernel."""
+    from vp8oclenc_tpu_torch import ssim_fx as S
     from vp8oclenc_tpu_torch.ops import inter as IN
     from vp8oclenc_tpu_torch.ops import intra as I
     from vp8oclenc_tpu_torch.ops import intra_replace as IR
@@ -314,7 +315,8 @@ def launch_counts() -> dict:
             "fullpel_search_shard": IN.fullpel_search.shard_launches,
             "qpel_search": IN.qpel_search.launches,
             "qpel_search_shard": IN.qpel_search.shard_launches,
-            "trial_luma": IR.trial_luma.launches}
+            "trial_luma": IR.trial_luma.launches,
+            "mb_ssim": S.mb_ssim_cuda.launches}
 
 
 def _encode_rank(layout, cfg, frames, width, height):

@@ -9,7 +9,9 @@ Definition (per block pair X, Y of n pixels, n in {256, 64}):
   ssim_q15 = divq15(L) · divq15(CS) >> 15
   DC penalty: if |s1−s2| > 4n:  ssim_q15 −= (|s1−s2|·655) >> log2(n)
 with C1'=round(6.5025·n²)>>2p, C2'=round(58.5225·n²) and divq15 a 15-step
-restoring long division (exact floor(a·32768/d)).
+restoring long division: floor(a·32768/d) for 0 <= a < d, but 32767, not
+32768, for a == d (identical or flat blocks reach it), which every
+implementation of this contract must keep.
 
 n·q1 and s1² exceed int32 for 16x16 blocks (255² · 256² > 2^31) although
 their difference fits.  The JAX package relies on int32 two's-complement
@@ -19,9 +21,18 @@ stays inside int32.
 
 Per-MB score = Y + U + V plane values (avg·3 in Q15, i.e. "1.0" = 98304).
 UNCODED_FX marks MBs that no pass has coded yet.
+
+`mb_ssim_fx` and `mb_ssim_fx_16x16` take uint8 or int32 pixels in
+0..255.  For CUDA tensors they launch csrc/ssim.cu's kernel once a call
+(`mb_ssim_cuda`, which counts its launches), reading every operand through
+its strides: the sums are taken in int32 and the scores in the integer
+arithmetic above, so the result equals the plain version's bit for bit.
+For CPU tensors they run the plain versions, `mb_ssim_fx_plain` and
+`mb_ssim_fx_16x16_plain`.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -49,8 +60,9 @@ def fx_to_float(fx) -> float:
 
 
 def _divq15(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """floor(a * 32768 / d) for int32 tensors with 0 <= a <= d,
-    1 <= d < 2^30 (so rem << 1 < 2^31)."""
+    """15-step restoring division of int32 tensors with 0 <= a <= d,
+    1 <= d < 2^30 (so rem << 1 < 2^31): floor(a * 32768 / d) for a < d;
+    for a == d every step subtracts, so the result saturates at 32767."""
     q = torch.zeros_like(a)
     rem = a
     for _ in range(15):
@@ -102,18 +114,111 @@ def _plane_mb_blocks(plane: torch.Tensor, size: int) -> torch.Tensor:
     return b.reshape((H // size) * (W // size), size * size)
 
 
-def mb_ssim_fx(y, ry, u, ru, v, rv) -> torch.Tensor:
-    """Per-MB 3-plane Q15 SSIM score: (mbc,) int32 ("1.0" = 98304)."""
+def mb_ssim_fx_plain(y, ry, u, ru, v, rv) -> torch.Tensor:
+    """Per-MB 3-plane Q15 SSIM score of whole planes, y/ry (H, W) and
+    u/ru, v/rv (H/2, W/2): (mbc,) int32 ("1.0" = 98304)."""
     fy = ssim_fx_blocks(_plane_mb_blocks(y, 16), _plane_mb_blocks(ry, 16), 256)
     fu = ssim_fx_blocks(_plane_mb_blocks(u, 8), _plane_mb_blocks(ru, 8), 64)
     fv = ssim_fx_blocks(_plane_mb_blocks(v, 8), _plane_mb_blocks(rv, 8), 64)
     return fy + fu + fv
 
 
-def mb_ssim_fx_16x16(sy, ry, su, ru, sv, rv) -> torch.Tensor:
+def mb_ssim_fx_16x16_plain(sy, ry, su, ru, sv, rv) -> torch.Tensor:
     """Per-MB score on patches: (..., 16, 16) luma and (..., 8, 8) chroma
     source/recon pairs -> (...,) int32 Q15."""
     fy = ssim_fx_blocks(sy.flatten(-2), ry.flatten(-2), 256)
     fu = ssim_fx_blocks(su.flatten(-2), ru.flatten(-2), 64)
     fv = ssim_fx_blocks(sv.flatten(-2), rv.flatten(-2), 64)
     return fy + fu + fv
+
+
+_ESZ = {torch.uint8: 1, torch.int32: 4}
+
+
+def _on_cpu(what: str, ts) -> bool:
+    """True if every tensor lies on the CPU; False if every one lies on
+    one CUDA device; else ValueError."""
+    dev = ts[0].device
+    for t in ts:
+        if t.device != dev or dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"{what}: every input must lie on the CPU or "
+                             f"on one CUDA device, got {t.device} beside "
+                             f"{dev}")
+        if t.dtype not in _ESZ:
+            raise ValueError(f"{what}: pixels must be uint8 or int32, got "
+                             f"{t.dtype}")
+    return dev.type == "cpu"
+
+
+_SIZES = (16, 16, 8, 8, 8, 8)   # block side of Y, Y, U, U, V, V
+
+
+def mb_ssim_cuda(ts, strides, mbw: int, lead) -> torch.Tensor:
+    """One launch of csrc/ssim.cu.  ts: the six operands source Y, recon
+    Y, source U, recon U, source V, recon V, uint8 or int32, on one CUDA
+    device; strides[i]: ts[i]'s element strides (s_my, s_mx, s_r4, s_r,
+    s_c4, s_c), pixel row 4R+r, column 4C+c of MB (my, mx) lying at
+    my*s_my + mx*s_mx + R*s_r4 + r*s_r + C*s_c4 + c*s_c.  Returns the
+    int32 scores of MBs m = my*mbw + mx, shaped `lead`."""
+    from vp8oclenc_tpu_torch.ops import cuda_build
+    dev = ts[0].device
+    out = torch.empty(lead, dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    desc = []
+    for t, st in zip(ts, strides):
+        desc += [t.data_ptr(), _ESZ[t.dtype], *st]
+    rc = cuda_build.library("ssim").vp8_mb_ssim(
+        (ctypes.c_longlong * len(desc))(*desc),
+        ctypes.c_void_p(out.data_ptr()), out.numel(), mbw, _C1[256] >> 4,
+        _C2[256], _C1[64], _C2[64],
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    cuda_build.check(rc, "vp8_mb_ssim")
+    mb_ssim_cuda.launches += 1
+    return out
+
+
+mb_ssim_cuda.launches = 0
+
+
+def mb_ssim_fx(y, ry, u, ru, v, rv) -> torch.Tensor:
+    """Per-MB 3-plane Q15 SSIM score of whole planes (contract of
+    `mb_ssim_fx_plain`): csrc/ssim.cu's kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    ts = (y, ry, u, ru, v, rv)
+    if _on_cpu("mb_ssim_fx", ts):
+        return mb_ssim_fx_plain(*ts)
+    if y.dim() != 2 or y.shape[0] % 16 or y.shape[1] % 16:
+        raise ValueError(f"mb_ssim_fx: y must be an (H, W) plane of whole "
+                         f"MBs, got {tuple(y.shape)}")
+    H, W = y.shape
+    strides = []
+    for t, n in zip(ts, _SIZES):
+        if tuple(t.shape) != (H * n // 16, W * n // 16):
+            raise ValueError(f"mb_ssim_fx: planes of {H}x{W} luma need "
+                             f"{n}/16 of it, got {tuple(t.shape)}")
+        a, b = t.stride()
+        strides.append((n * a, n * b, 4 * a, a, 4 * b, b))
+    return mb_ssim_cuda(ts, strides, W // 16, ((H // 16) * (W // 16),))
+
+
+def mb_ssim_fx_16x16(sy, ry, su, ru, sv, rv) -> torch.Tensor:
+    """Per-MB score on patches (contract of `mb_ssim_fx_16x16_plain`),
+    with at most two leading dimensions on the card: csrc/ssim.cu's kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    ts = (sy, ry, su, ru, sv, rv)
+    if _on_cpu("mb_ssim_fx_16x16", ts):
+        return mb_ssim_fx_16x16_plain(*ts)
+    lead = tuple(sy.shape[:-2])
+    if len(lead) > 2:
+        raise ValueError(f"mb_ssim_fx_16x16: at most two leading "
+                         f"dimensions on the card, got {tuple(sy.shape)}")
+    strides = []
+    for t, n in zip(ts, _SIZES):
+        if tuple(t.shape) != lead + (n, n):
+            raise ValueError(f"mb_ssim_fx_16x16: expected {lead + (n, n)}, "
+                             f"got {tuple(t.shape)}")
+        *ls, a, b = t.stride()
+        strides.append((0,) * (2 - len(lead)) + tuple(ls)
+                       + (4 * a, a, 4 * b, b))
+    return mb_ssim_cuda(ts, strides, lead[-1] if lead else 1, lead)
