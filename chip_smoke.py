@@ -35,7 +35,13 @@ Phases (any failure exits non-zero before the result line):
      with an int32 and a u8 recon, per-MB patches, non-contiguous views of
      the planes), with edge MBs (identical, flat, all 0 against all 255,
      all 255 against both), at 1920x1088, 3840x2160 and 16384x128, and at
-     1, 7 and 8161 MBs; outputs must be bit-identical; kernels are timed
+     1, 7 and 8161 MBs; then the transform pass kernel (one segment pass
+     of an inter frame) and the chroma trial kernel (csrc/transform.cu)
+     against their plain versions at 1920x1088, 3840x2160 and 16384x128,
+     the pass four times at the SSIM segments' quantizers (the later
+     passes masked to about half the MBs) and twice at the extremes, with
+     +-255 residuals, the trial at the three SSIM quantizer pairs on
+     strided patches; outputs must be bit-identical; kernels are timed
      by the card's clock (`cuda_ms`), plain versions with CUDA events
      around one call (`span_ms`);
   4. all-keyframe path: 10 synthetic 1920x1080 frames through
@@ -46,15 +52,17 @@ Phases (any failure exits non-zero before the result line):
   5. default-GOP path: 10 frames of a panned canvas with gop_size=150,
      altref_range=5 (1 keyframe, then inter frames over LAST, GOLDEN and
      ALTREF), counters as in 4; at least 8 inter frames, every kernel
-     launched (the SSIM kernel once per inter frame), some vectors nonzero
+     launched (the transform pass and the SSIM kernel once per inter
+     frame), some vectors nonzero
      and GOLDEN or ALTREF chosen somewhere;
      the inter device-chain time and the sequential host split; the first 3
      frames again on the CPU, whose bytes must be identical;
   6. SSIM-target path: 10 frames of static noise with 200 regions of 32x32
      that get a fresh smooth gradient every frame, constant chroma, at
      -qmin 50 -qmax 112 -SSIM-target 98, gop_size=150: at least 8 inter
-     frames, the luma trial kernel launched 3 times per inter frame and
-     the SSIM kernel 7 times (4 segment passes, 3 trials), some MBs
+     frames, the luma and chroma trial kernels launched 3 times per inter
+     frame, the transform pass 4 times and the SSIM kernel 7 times (4
+     segment passes, 3 trials), some MBs
      replaced on some frame and never more than a sixth, more than one
      segment in use, no frame done again as a key; an SSIM-on inter frame
      dispatched with stream synchronization an error; the inter
@@ -87,9 +95,9 @@ Phases (any failure exits non-zero before the result line):
      reproduced through tools/quality_cuda.run_config on the card
      (synth_sequence seed 0, 8 frames of 1920x1080, qi 12..40,
      gop_size=100, altref_range=5, ssim_target=0.93: a keyframe, inter
-     frames over three references and the SSIM controller, so all six
-     kernels run, counters as in 4); its kbps, PSNR and SSIM equal to the
-     row at the row's rounding; frames 0-2 decoded by the port's decoder
+     frames over three references and the SSIM controller, so every
+     kernel runs, counters as in 4); its kbps, PSNR and SSIM equal to the
+     row at the row's rounding; frames 0-1 decoded by the port's decoder
      (vp8oclenc_tpu_torch/decoder), Y, U and V bit-exact against the
      card's recon; then a 96x80 default-GOP stream through the spec
      backend (the numpy oracle) byte-identical to the card's; a
@@ -127,8 +135,8 @@ Phases (any failure exits non-zero before the result line):
      partition printed against the frame tag's 19-bit field, fps, device
      chains and host split; a `wide` JSON line;
   14. a `kernels` JSON line (each kernel with its launches on the
-     default-GOP path, the trial's on the SSIM-target path, the SSIM
-     kernel's on both; its launches on the multi-rank path and, for the
+     default-GOP path, the trials' on the SSIM-target path, the SSIM
+     kernel's and the transform pass's on both; its launches on the multi-rank path and, for the
      three with one, its shard or band mode's time, bound and launches;
      its UHD and wide records, the latter with the 8K stream's launches
      and, for the filter and luma, their card ms at 1080p, UHD and 8K),
@@ -173,7 +181,7 @@ SSIM_REGIONS = 200            # of 32x32: 800 MBs of 8160, under a sixth
 REDO_CFG = dict(qi_min=95, qi_max=127, gop_size=150, ssim_target=0.985)
 N_REDO_FRAMES, REDO_AT = 5, 2
 N_MULTI_FRAMES, N_MULTI_SSIM_FRAMES = 10, 5   # multi-rank encodes
-N_QUALITY_DECODED = 3         # the keyframe and two inter frames
+N_QUALITY_DECODED = 2         # the keyframe and an inter frame
 N_SPEC_FRAMES = 5
 # UHD (3840x2160: 240 x 135 MBs) at the reference's launch configuration,
 # 4 token partitions and 6 packer threads (bench.py's base): 6 frames of
@@ -240,6 +248,14 @@ OPS_SIXTAP_INT, OPS_SIXTAP_MAC8 = 4, 6
 # for the variances, terms, sign, product and penalty each
 OPS_SSIM_PIXEL = 5
 OPS_SSIM_MB = 15 * 5 * 2 + 3 * (2 * 15 * 4 + 40)
+# The transform pass: a 4x4 block costs ~16 for the residual, ~168 for
+# the fdct's two passes, ~160 to quantize and dequantize, ~176 for the
+# idct, ~64 for recon and clamp and ~20 for the zigzag and stores; a 16x16
+# MB's Y2 ~400 (two WHTs, quantize, dequantize).  The chroma trial's block
+# adds ~64 for TM_PRED.
+OPS_TRANSFORM_BLOCK = 600
+OPS_Y2 = 400
+OPS_TM_BLOCK = 64
 QPEL_HPASS_FILTERED, QPEL_HPASS_COPIED = 4 * 14 * 8, 14 * 8
 
 
@@ -967,6 +983,138 @@ def phase_ssim(dev):
             rows["3840x2160"], rows[f"{WIDEST_W}x{WIDEST_H}"])
 
 
+def _pass_inputs(mbw, mbh, seed, dev):
+    """The transform pass's operands as the inter path hands them over:
+    u8 source planes, the prediction planes (u8 luma, int32 chroma: the
+    source plus noise, small residuals as after a search) with +-255
+    residuals in the first MBs, mixed partitionings, and a cur_ssim
+    around 0 for the masked passes (about half the MBs active)."""
+    rng = np.random.default_rng(seed)
+    H, W = 16 * mbh, 16 * mbw
+    src = [synth_plane(rng, h, w, seed)
+           for h, w in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
+    pred = [(p.astype(np.int32) + rng.integers(-12, 13, p.shape)).clip(0, 255)
+            for p in src]
+    for s, p, n in zip(src, pred, (16, 8, 8)):
+        s[:n, :n], p[:n, :n] = 255, 0
+        s[n // 2:n, n // 2:n], p[n // 2:n, n // 2:n] = 0, 255
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+    return ([t(a, np.uint8) for a in src],
+            [t(pred[0], np.uint8), t(pred[1], np.int32),
+             t(pred[2], np.int32)],
+            t(rng.integers(0, 2, mbw * mbh), np.int32),
+            t(rng.integers(-3, 3, mbw * mbh), np.int32))
+
+
+def _pass_same(what, src, pred, parts, cur, quants):
+    """The kernel's passes (the first, then masked ones at cur_ssim <= 0)
+    against the plain version's, every state bit-exact; one launch a
+    pass."""
+    from vp8oclenc_tpu_torch.ops import inter as IN
+    ks = ps = None
+    for i, q in enumerate(quants):
+        c = cur if i else None
+        before = IN.inter_pass.launches
+        ks = IN.inter_pass(*src, *pred, parts, 3 - i, q, 0, c, ks)
+        if IN.inter_pass.launches != before + 1:
+            raise AssertionError("inter_pass did not count its launch")
+        ps = IN.inter_pass_plain(*src, *pred, parts, 3 - i, q, 0, c, ps)
+        err = max_abs_err(ks, ps)
+        if err:
+            raise AssertionError(f"inter_pass ({what}, pass {i}, q={q}): "
+                                 f"kernel differs from its plain version "
+                                 f"by {err}")
+
+
+def _trial_chroma_inputs(src, pred):
+    """The chroma trial's operands as the SSIM controller passes them:
+    `_plane_mb` patches of the u and v source planes, and the frozen
+    neighbours of a recon (here the prediction planes)."""
+    from vp8oclenc_tpu_torch.ops import intra_replace as IR
+    mbh, mbw = src[1].shape[0] // 8, src[1].shape[1] // 8
+    return ([IR._plane_mb(p, 8) for p in src[1:]],
+            [IR._frozen_chroma_neighbors(p.to(torch.uint8), mbw, mbh)
+             for p in pred[1:]])
+
+
+def phase_transform(dev):
+    """The transform pass kernel (csrc/transform.cu inter_pass_kernel)
+    and the chroma trial kernel against their plain versions, bit-exact:
+    at 1920x1088 (8160 MBs), 3840x2160 (32400) and 16384x128 (8192, 1024
+    MB columns).  The pass four times at the segment quantizers of
+    -qmin 50 -qmax 112 (LQ first, then AQ, HQ, UQ over about half the MBs)
+    and twice at the extremes (4, 4, 8, 8, 4, 4) and (157, 284, 314, 440,
+    132, 284); the trial at the three SSIM quantizer pairs.  Each timed by
+    the card's clock (the first pass, all MBs) with its bound.  Returns
+    ({kernel: the 1080p row}, {kernel: UHD record}, {kernel: wide
+    record})."""
+    from vp8oclenc_tpu_torch.config import EncoderConfig
+    from vp8oclenc_tpu_torch.ops import inter as IN
+    from vp8oclenc_tpu_torch.ops import intra_replace as IR
+    from vp8oclenc_tpu_torch.pipeline.segments import prepare_segments
+
+    rows = {}
+    for label, (mbw, mbh) in (("1920x1088", (W // 16, (H + 15) // 16)),
+                              ("3840x2160", (UHD_W // 16, UHD_H // 16)),
+                              (f"{WIDEST_W}x{WIDEST_H}",
+                               (WIDEST_W // 16, WIDEST_H // 16))):
+        mbc = mbw * mbh
+        src, pred, parts, cur = _pass_inputs(mbw, mbh, mbw + mbh, dev)
+        seg = prepare_segments(EncoderConfig(**SSIM_CFG),
+                               src[0].cpu().numpy(), False, False)
+        quants = [[int(a[s]) for a in (seg.y_dc_q, seg.y_ac_q, seg.y2_dc_q,
+                                       seg.y2_ac_q, seg.uv_dc_q,
+                                       seg.uv_ac_q)] for s in (3, 2, 1, 0)]
+        _pass_same(label, src, pred, parts, cur, quants)
+        _pass_same(label, src, pred, parts, cur,
+                   [(4, 4, 8, 8, 4, 4), (157, 284, 314, 440, 132, 284)])
+        args = (*src, *pred, parts, 3, quants[0])
+        ms = cuda_ms(lambda: IN.inter_pass(*args), reps=20)
+        out, pms = _plain(lambda: IN.inter_pass_plain(*args))
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (*src, *pred, parts, *out))
+        bms, by = bound(nbytes, mbc * (24 * OPS_TRANSFORM_BLOCK + OPS_Y2))
+        log(f"  inter_pass ({label}, {mbc} MBs): bit-exact over 4 + 2 "
+            f"passes, kernel {ms:.4f} ms, plain {pms:.1f} ms, bound "
+            f"{bms:.5f} ms ({by}), share {bms / ms:.4f}")
+        rec = {"inter_pass": {"shape": label, "max_abs_err": 0, "ms": ms,
+                              "plain_ms": pms, "bound_ms": bms,
+                              "bound_by": by, "share": bms / ms}}
+
+        patches, nbs = _trial_chroma_inputs(src, pred)
+        t_ms, t_pms = [], []
+        for q in quants[1:]:
+            q = q[4:]
+            k = IR.trial_chroma(*patches, *nbs, *q)
+            p, pms = _plain(lambda: IR.trial_chroma_plain(*patches, *nbs,
+                                                          *q))
+            err = max_abs_err(k, p)
+            if err:
+                raise AssertionError(f"trial_chroma ({label}, q={q}): "
+                                     f"kernel differs from its plain "
+                                     f"version by {err}")
+            t_ms.append(cuda_ms(lambda: IR.trial_chroma(*patches, *nbs, *q),
+                                reps=20))
+            t_pms.append(pms)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (*patches, *nbs[0], *nbs[1], *k))
+        bms, by = bound(nbytes, mbc * 8 * (OPS_TRANSFORM_BLOCK
+                                           + OPS_TM_BLOCK))
+        ms, pms = statistics.median(t_ms), statistics.median(t_pms)
+        log(f"  trial_chroma ({label}, {mbc} MBs, both planes): bit-exact "
+            f"at 3 quantizer pairs, kernel {ms:.4f} ms, plain {pms:.1f} ms, "
+            f"bound {bms:.5f} ms ({by}), share {bms / ms:.4f}")
+        rec["trial_chroma"] = {"shape": label, "max_abs_err": 0, "ms": ms,
+                               "plain_ms": pms, "bound_ms": bms,
+                               "bound_by": by, "share": bms / ms}
+        rows[label] = rec
+    first = rows["1920x1088"]
+    return ({name: {"max_abs_err": 0, "ms": [r["ms"]],
+                    "plain_ms": [r["plain_ms"]], "bound_ms": [r["bound_ms"]],
+                    "bound_by": r["bound_by"]} for name, r in first.items()},
+            rows["3840x2160"], rows[f"{WIDEST_W}x{WIDEST_H}"])
+
+
 def phase_end_to_end(dev):
     from vp8oclenc_tpu_torch.config import EncoderConfig
     from vp8oclenc_tpu_torch.io.y4m import pad_frame
@@ -1066,6 +1214,7 @@ def phase_default_gop(dev):
                 "loop_filter": LF.filter_planes,
                 "fullpel_search": IN.fullpel_search,
                 "qpel_search": IN.qpel_search,
+                "inter_pass": IN.inter_pass,
                 "mb_ssim": S.mb_ssim_cuda}
     enc = Encoder(EncoderConfig(**cfg), W, H, device=dev)
     for c in counters.values():
@@ -1088,10 +1237,11 @@ def phase_default_gop(dev):
         if n <= 0:
             raise AssertionError(f"{name} was never launched on the "
                                  f"default-GOP path")
-    if launches["mb_ssim"] != n_inter:
-        raise AssertionError(f"mb_ssim was launched {launches['mb_ssim']} "
-                             f"times for {n_inter} inter frames, not once "
-                             f"each")
+    for name in ("inter_pass", "mb_ssim"):    # one segment pass a frame
+        if launches[name] != n_inter:
+            raise AssertionError(f"{name} was launched {launches[name]} "
+                                 f"times for {n_inter} inter frames, not "
+                                 f"once each")
     gaps = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     log(f"  {N_FRAMES} frames {W}x{H} gop 150 ({n_inter} inter) in "
         f"{dt:.3f} s: {N_FRAMES / dt:.3f} fps end to end, median frame "
@@ -1165,6 +1315,8 @@ def _counters():
             "fullpel_search": IN.fullpel_search,
             "qpel_search": IN.qpel_search,
             "trial_luma": IR.trial_luma,
+            "trial_chroma": IR.trial_chroma,
+            "inter_pass": IN.inter_pass,
             "mb_ssim": S.mb_ssim_cuda}
 
 
@@ -1240,14 +1392,13 @@ def phase_ssim_target(dev):
     if st.scene_changes_by_ssim + st.scene_changes_by_replaced \
             + st.scene_changes_by_color:
         raise AssertionError(f"a frame was done again as a key: {st}")
-    if launches["trial_luma"] != 3 * n_inter:
-        raise AssertionError(f"trial_luma was launched "
-                             f"{launches['trial_luma']} times for {n_inter} "
-                             f"inter frames, not 3 each")
     # four segment passes and three trials an inter frame
-    if launches["mb_ssim"] != 7 * n_inter:
-        raise AssertionError(f"mb_ssim was launched {launches['mb_ssim']} "
-                             f"times for {n_inter} inter frames, not 7 each")
+    for name, each in (("trial_luma", 3), ("trial_chroma", 3),
+                       ("inter_pass", 4), ("mb_ssim", 7)):
+        if launches[name] != each * n_inter:
+            raise AssertionError(f"{name} was launched {launches[name]} "
+                                 f"times for {n_inter} inter frames, not "
+                                 f"{each} each")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was never launched on the "
@@ -1594,7 +1745,7 @@ def phase_multirank(dev):
         synth_moving(N_MULTI_FRAMES, seed=4), 4, 2, 2, dev)
     for name in ("luma_wavefront", "chroma_wavefront", "loop_filter",
                  "loop_filter_band", "fullpel_search", "fullpel_search_shard",
-                 "qpel_search", "qpel_search_shard"):
+                 "qpel_search", "qpel_search_shard", "inter_pass"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched by the ranks")
     for k, v in launches.items():
@@ -1602,7 +1753,8 @@ def phase_multirank(dev):
     launches, replaced, *_ = _multirank(
         "replacement content, SSIM target 0.98", SSIM_CFG,
         synth_replacement(N_MULTI_SSIM_FRAMES, seed=6), 2, 1, 2, dev)
-    if launches["trial_luma"] <= 0 or replaced <= 0:
+    if launches["trial_luma"] <= 0 or launches["trial_chroma"] <= 0 \
+            or replaced <= 0:
         raise AssertionError("the SSIM controller did not run in the ranks")
     for k, v in launches.items():
         total[k] = total.get(k, 0) + v
@@ -1899,7 +2051,7 @@ def phase_uhd_streams(dev):
     if tags != [0, 1, 1] * (N_UHD_FRAMES // 3):
         raise AssertionError(f"UHD default GOP: frame tags {tags}")
     for name in ("luma_wavefront", "chroma_wavefront", "loop_filter",
-                 "fullpel_search", "qpel_search"):
+                 "fullpel_search", "qpel_search", "inter_pass"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on the UHD "
                                  f"default-GOP path")
@@ -1988,10 +2140,11 @@ def phase_uhd_streams(dev):
     if st.scene_changes_by_ssim + st.scene_changes_by_replaced \
             + st.scene_changes_by_color:
         raise AssertionError(f"a frame was done again as a key: {st}")
-    if slaunches["trial_luma"] != 3 * n_inter:
-        raise AssertionError(f"trial_luma was launched "
-                             f"{slaunches['trial_luma']} times for {n_inter} "
-                             f"inter frames, not 3 each")
+    for name in ("trial_luma", "trial_chroma"):
+        if slaunches[name] != 3 * n_inter:
+            raise AssertionError(f"{name} was launched {slaunches[name]} "
+                                 f"times for {n_inter} inter frames, not 3 "
+                                 f"each")
     for name, n in slaunches.items():
         if n <= 0:
             raise AssertionError(f"{name} was never launched on the UHD "
@@ -2012,7 +2165,7 @@ def phase_uhd_streams(dev):
         "UHD panned canvas, gop_size=3", UHD_CFG, frames, 4, 2, 2, dev,
         UHD_W, UHD_H)
     for name in ("luma_wavefront", "chroma_wavefront", "loop_filter_band",
-                 "fullpel_search_shard", "qpel_search_shard"):
+                 "fullpel_search_shard", "qpel_search_shard", "inter_pass"):
         if mlaunches[name] <= 0:
             raise AssertionError(f"{name} was never launched by the UHD "
                                  f"ranks")
@@ -2031,7 +2184,9 @@ GLOBAL_KERNELS = {"luma_wavefront": "luma_rows_kernel",
                   "fullpel_search": "fullpel_kernel",
                   "qpel_search": "qpel_kernel",
                   "trial_luma": "trial_luma_kernel",
-                  "mb_ssim": "mb_ssim_kernel"}
+                  "mb_ssim": "mb_ssim_kernel",
+                  "inter_pass": "inter_pass_kernel",
+                  "trial_chroma": "trial_chroma_kernel"}
 
 
 def global_kernel(name, width):
@@ -2327,7 +2482,7 @@ def phase_wide_streams(dev):
     _same_as_cpu(f"{WIDE_W}x{WIDE_H} keyframe", UHD_CFG, frames[:1], out,
                  w=WIDE_W, h=WIDE_H)
     for name in ("luma_wavefront", "chroma_wavefront", "loop_filter",
-                 "fullpel_search", "qpel_search"):
+                 "fullpel_search", "qpel_search", "inter_pass"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on the 8K "
                                  f"default-GOP path")
@@ -2442,6 +2597,10 @@ def main() -> int:
     rows.update(phase_trial(dev))
     log("[kernels] integer SSIM kernel vs plain version, 8160 MBs")
     rows["mb_ssim"], ssim_uhd, ssim_wide = phase_ssim(dev)
+    log("[kernels] transform pass and chroma trial kernels vs plain "
+        "versions, 8160, 32400 and 8192 MBs")
+    tp_rows, tp_uhd, tp_wide = phase_transform(dev)
+    rows.update(tp_rows)
     log(f"[time] {time.monotonic() - t0:.0f} s")
     log("[end-to-end] Encoder.encode_frames, gop_size=1")
     g1_launches = phase_end_to_end(dev)
@@ -2452,7 +2611,8 @@ def main() -> int:
     log(f"[time] {time.monotonic() - t0:.0f} s")
     log("[end-to-end] Encoder.encode_frames, SSIM target")
     ssim_launches = phase_ssim_target(dev)
-    launches["trial_luma"] = ssim_launches["trial_luma"]
+    for name in ("trial_luma", "trial_chroma"):
+        launches[name] = ssim_launches[name]
     log(f"[time] {time.monotonic() - t0:.0f} s")
     log("[end-to-end] redo-as-key with frames in flight")
     phase_redo(dev)
@@ -2472,6 +2632,7 @@ def main() -> int:
     log(f"[uhd] the six kernels at {UHD_W}x{UHD_H} vs plain versions")
     uhd_rows = phase_uhd_kernels(dev)
     uhd_rows["mb_ssim"] = ssim_uhd
+    uhd_rows.update(tp_uhd)
     log(f"[time] {time.monotonic() - t0:.0f} s")
     log(f"[uhd] Encoder.encode_frames at {UHD_W}x{UHD_H}, 4 partitions, 6 "
         f"threads: default GOP, SSIM target; 4 ranks over 2 x 2 row tiles")
@@ -2481,6 +2642,7 @@ def main() -> int:
         f"luma at {WIDE_W}x{WIDE_STRIP_H} and timed at {WIDE_W}x{WIDE_H}")
     wide_rows = phase_wide_kernels(dev)
     wide_rows["mb_ssim"] = ssim_wide
+    wide_rows.update(tp_wide)
     log(f"[time] {time.monotonic() - t0:.0f} s")
     log(f"[wide] Encoder.encode_frames at {WIDE_W}x{WIDE_STRIP_H} against "
         f"the CPU, and {N_WIDE_FRAMES} frames of {WIDE_W}x{WIDE_H}, 4 "
@@ -2494,7 +2656,9 @@ def main() -> int:
            "fullpel_search": "vp8oclenc_tpu_torch/csrc/search.cu",
            "qpel_search": "vp8oclenc_tpu_torch/csrc/search.cu",
            "trial_luma": "vp8oclenc_tpu_torch/csrc/intra.cu",
-           "mb_ssim": "vp8oclenc_tpu_torch/csrc/ssim.cu"}
+           "mb_ssim": "vp8oclenc_tpu_torch/csrc/ssim.cu",
+           "inter_pass": "vp8oclenc_tpu_torch/csrc/transform.cu",
+           "trial_chroma": "vp8oclenc_tpu_torch/csrc/transform.cu"}
     replaces = {"luma_wavefront": "vp8oclenc_tpu/ops/pallas_intra.py:309",
                 "chroma_wavefront": "vp8oclenc_tpu/ops/pallas_intra.py:580",
                 "loop_filter": "vp8oclenc_tpu/ops/loopfilter.py:96",
@@ -2502,7 +2666,11 @@ def main() -> int:
                 "qpel_search": "vp8oclenc_tpu/ops/pallas_kernels.py:396",
                 "trial_luma": "vp8oclenc_tpu/ops/pallas_intra.py:457",
                 "mb_ssim": "vp8oclenc_tpu/ssim_fx.py (XLA ops, no Pallas "
-                           "kernel)"}
+                           "kernel)",
+                "inter_pass": "vp8oclenc_tpu/ops/inter.py:922 (seg_pass, "
+                              "XLA ops)",
+                "trial_chroma": "vp8oclenc_tpu/ops/intra_replace.py:147 "
+                                "(XLA ops)"}
     kernels = []
     for name, r in rows.items():
         kernels.append({
@@ -2516,7 +2684,7 @@ def main() -> int:
             "library_ms": None, "bit_exact": r["max_abs_err"] == 0})
         if "chain_ms" in r:
             kernels[-1]["chain_ms"] = statistics.median(r["chain_ms"])
-        if name == "mb_ssim":   # 1 a default-GOP inter frame, 7 SSIM-on
+        if name in ("mb_ssim", "inter_pass"):   # SSIM-on: 7 and 4 a frame
             kernels[-1]["launches_ssim_target"] = ssim_launches[name]
         kernels[-1]["multirank_launches"] = multi[name]
         if name in modes:       # the kernel's row-shard or band mode

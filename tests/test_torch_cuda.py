@@ -397,6 +397,117 @@ def test_mb_ssim_refuses_mixed_devices(dev):
                            c.to(torch.int16).to(dev))
 
 
+PASS_QUANTS = [(4, 4, 8, 8, 4, 4), (157, 284, 314, 440, 132, 284),
+               (33, 41, 66, 51, 20, 30), (7, 9, 12, 14, 6, 8)]
+
+
+def _pass_operands(mbw, mbh, seed, dev):
+    """The transform pass's operands as the inter path passes them: u8
+    source planes, a u8 luma and int32 chroma prediction with +255 and
+    -255 residuals in MB 0, mixed partitionings, and for each later pass
+    a cur_ssim around 0 (about half the MBs active)."""
+    rng = np.random.default_rng(seed)
+    sizes = ((16 * mbh, 16 * mbw), (8 * mbh, 8 * mbw), (8 * mbh, 8 * mbw))
+    src = [rng.integers(0, 256, s).astype(np.uint8) for s in sizes]
+    pred = [(s.astype(np.int32) + rng.integers(-20, 21, s.shape))
+            .clip(0, 255) for s in src]
+    for s, p, n in zip(src, pred, (16, 8, 8)):
+        s[:n // 2, :n], p[:n // 2, :n] = 255, 0
+        s[n // 2:n, :n], p[n // 2:n, :n] = 0, 255
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+    return ([t(a, np.uint8) for a in src],
+            [t(pred[0], np.uint8)] + [t(a, np.int32) for a in pred[1:]],
+            t(rng.integers(0, 2, mbw * mbh), np.int32),
+            [t(rng.integers(-3, 3, mbw * mbh), np.int32) for _ in range(4)])
+
+
+@pytest.mark.parametrize("mbw,mbh", [(1, 1), (7, 1), (8161, 1), (6, 5),
+                                     (1024, 8)])
+def test_inter_pass_matches_plain(dev, mbw, mbh):
+    """The transform pass kernel bit-exact against its plain version at 1,
+    7 and 8161 MBs in a row, 96x80 and 16384x128: four passes, the first
+    over every MB, the others over the MBs at or below the target, one
+    launch each; every state tensor equal after every pass."""
+    src, pred, parts, curs = _pass_operands(mbw, mbh, mbw + mbh, dev)
+    ks = ps = None
+    for i, q in enumerate(PASS_QUANTS):
+        cur = curs[i] if i else None
+        before = IN.inter_pass.launches
+        ks = IN.inter_pass(*src, *pred, parts, 3 - i, q, 0, cur, ks)
+        assert IN.inter_pass.launches == before + 1
+        ps = IN.inter_pass_plain(*src, *pred, parts, 3 - i, q, 0, cur, ps)
+        torch.cuda.synchronize()
+        assert all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(ks, ps)), i
+    if mbw * mbh > 1:
+        assert len(torch.unique(ks[1])) > 1         # the masks mixed them
+
+
+@pytest.mark.parametrize("mbc", [1, 7, 8161, 30, 8192])
+@pytest.mark.parametrize("q", [(4, 4), (132, 284), (17, 25)])
+def test_trial_chroma_matches_plain(dev, mbc, q):
+    """Both chroma planes in one launch, bit-exact against the plain
+    version at 1, 7 and 8161 MBs, 96x80's 30 and 16384x128's 8192: U
+    patches as `_plane_mb` views of a plane and a strided top row, V with
+    all-0 and all-255 MBs."""
+    rng = np.random.default_rng(mbc + q[0])
+    rnd = lambda *s: torch.from_numpy(
+        rng.integers(0, 256, s, dtype=np.uint8)).to(dev)
+    u_mb = IR._plane_mb(rnd(8, 8 * mbc), 8)
+    assert mbc == 1 or not u_mb.is_contiguous()
+    v_mb = rnd(mbc, 8, 8)
+    v_mb[:mbc // 3], v_mb[mbc // 3:2 * mbc // 3] = 0, 255
+    un = (rnd(mbc, 16)[:, ::2], rnd(mbc, 8), rnd(2 * mbc)[::2])
+    vn = (rnd(mbc, 8), rnd(mbc, 8), rnd(mbc))
+    before = IR.trial_chroma.launches
+    k = IR.trial_chroma(u_mb, v_mb, un, vn, *q)
+    assert IR.trial_chroma.launches == before + 1
+    p = IR.trial_chroma_plain(u_mb, v_mb, un, vn, *q)
+    torch.cuda.synchronize()
+    assert all(a.dtype == b.dtype == torch.int32 and torch.equal(a, b)
+               for a, b in zip(k, p))
+
+
+def test_transform_kernels_refuse_mixed_devices(dev):
+    src, pred, parts, _ = _pass_operands(2, 1, 3, dev)
+    with pytest.raises(ValueError):
+        IN.inter_pass(*src, *pred, parts.cpu(), 3, PASS_QUANTS[0])
+    with pytest.raises(ValueError):
+        IN.inter_pass(src[0][:8], *src[1:], *pred, parts, 3, PASS_QUANTS[0])
+    state = IN.inter_pass(*src, *pred, parts, 3, PASS_QUANTS[0])
+    with pytest.raises(ValueError):                 # a later pass needs it
+        IN.inter_pass(*src, *pred, parts, 2, PASS_QUANTS[1], 0, None, state)
+    c = torch.zeros((2, 8, 8), dtype=torch.uint8, device=dev)
+    nb = (c[:, 0], c[:, 1], c[:, 0, 0])
+    with pytest.raises(ValueError):
+        IR.trial_chroma(c, c, nb, (nb[0].cpu(), *nb[1:]), 4, 4)
+    with pytest.raises(ValueError):
+        IR.trial_chroma(c, c.to(torch.int32), nb, nb, 4, 4)
+
+
+def test_inter_chain_launches_transform_kernels_without_sync(dev):
+    """An inter frame's dispatch, with SSIM control off and on, goes
+    through the transform pass kernel (1 and 4 launches) and the chroma
+    trial kernel (3 launches with SSIM on) with stream synchronization an
+    error."""
+    from vp8oclenc_tpu_torch.pipeline.encoder import _own_padded
+    for cfg, frames, passes, trials in (
+            (dict(qi_min=8, qi_max=30), _moving(96, 80, 3, seed=6), 1, 0),
+            (SSIM_CFG, _replacement(96, 80, 3, seed=7), 4, 3)):
+        enc = Encoder(EncoderConfig(**cfg), 96, 80, device=dev)
+        list(enc.encode_frames(frames[:2]))      # key, then warm constants
+        before = IN.inter_pass.launches, IR.trial_chroma.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fd, seg = enc._frame_pixels(_own_padded(frames[2]))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert not fd.is_key
+        assert (IN.inter_pass.launches - before[0],
+                IR.trial_chroma.launches - before[1]) == (passes, trials)
+        enc.close()
+
+
 def _replacement(w, h, n, seed):
     """Static noise, constant chroma, and three 32x32 regions that get a
     fresh smooth gradient every frame: inter prediction fails there and

@@ -20,7 +20,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("intra", "loopfilter", "search", "ssim", "probe")
+SOURCES = ("intra", "loopfilter", "search", "ssim", "transform", "probe")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +45,10 @@ _SIGNATURES = {
     },
     "ssim": {
         "vp8_mb_ssim": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "transform": {
+        "vp8_inter_pass": [_P] * 6 + [_I] * 11 + [_P],
+        "vp8_trial_chroma": [_P, _P, _P, _I, _I, _I, _P],
     },
     # not a kernel of the encoder: the integer-rate probe of chip_smoke.py
     "probe": {

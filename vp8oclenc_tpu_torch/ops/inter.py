@@ -26,13 +26,17 @@ halo rows above and below at levels 0 and 1, the whole plane at levels
 offset, the band's first row `row0` and the frame's height `full_h`, and
 judge a candidate by its row in the frame.
 
-The two searches have two versions with one contract each:
-  * `fullpel_search_plain`, `qpel_search_plain`: plain PyTorch on any
-    device, the reference the CUDA kernels are held against;
-  * `fullpel_search`, `qpel_search`: for CUDA tensors they launch the
-    hand-written kernels of csrc/search.cu, for CPU tensors they take the
-    plain versions.
-Chroma MC, the transforms and SSIM are plain PyTorch on either device.
+The two searches and the segment pass have two versions with one contract
+each:
+  * `fullpel_search_plain`, `qpel_search_plain`, `inter_pass_plain`: plain
+    PyTorch on any device, the reference the CUDA kernels are held
+    against;
+  * `fullpel_search`, `qpel_search`, `inter_pass`: for CUDA tensors they
+    launch the hand-written kernels of csrc/search.cu and
+    csrc/transform.cu, for CPU tensors they take the plain versions.
+A segment pass (residual, transforms with Y2, recon, written in place
+for the pass's MBs) is one `inter_pass` launch and one integer SSIM
+launch (ssim_fx.mb_ssim_fx).  Chroma MC is plain PyTorch on either device.
 """
 from __future__ import annotations
 
@@ -531,6 +535,145 @@ def transform_mb_chroma(res_blocks, dc_q, ac_q):
 
 
 # ---------------------------------------------------------------------------
+# one segment pass
+# ---------------------------------------------------------------------------
+
+def _mb_where(mask, new, plane, n: int):
+    """`new` where the (mbc,) mask holds, else `plane`: (H, W) planes of
+    n x n MBs."""
+    h, w = plane.shape
+    m = mask.reshape(h // n, 1, w // n, 1)
+    return torch.where(m, new.reshape(h // n, n, w // n, n),
+                       plane.reshape(h // n, n, w // n, n)).reshape(h, w)
+
+
+def inter_pass_plain(y, u, v, pred_y, pred_u, pred_v, parts, sid: int,
+                     quant, ssim_target: int = -1, cur_ssim=None,
+                     state=None):
+    """One segment pass of the inter frame over every MB.
+
+    y (H, W), u/v (H/2, W/2) u8 source planes (MB-aligned); pred_* the
+    prediction planes of the same shapes, u8 or int32; parts (mbc,) int32
+    partitionings; sid the segment and quant its six quantizers (y_dc,
+    y_ac, y2_dc, y2_ac, uv_dc, uv_ac; host ints).  An active MB is coded:
+    residual, fdct, quantization (a 16x16 MB's DCs through Y2), dequant,
+    idct, recon = clamp(pred + residual, 0, 255).
+
+    state None: the first pass; every MB is active, and the state
+    (levels_pack (mbc, 25, 16) i16: Y 16 zigzag blocks, U 4, V 4, Y2 (zero
+    for split MBs); seg_ids (mbc,) i32; recon ry, ru, rv u8 planes;
+    active (mbc,) bool) is allocated and returned.  Otherwise the MBs with
+    cur_ssim <= ssim_target (cur_ssim (mbc,) i32, as before the pass) are
+    active, and `state` is updated in place for them (`active` for every
+    MB) and returned."""
+    H, W = y.shape
+    mbw, mbh = W // 16, H // 16
+    y_dc, y_ac, y2_dc, y2_ac, uv_dc, uv_ac = (int(q) for q in quant)
+    py, pu, pv = (p.to(_I32) for p in (pred_y, pred_u, pred_v))
+    lz, y2z, rr = transform_mb_luma(
+        _mb_blocks_luma(y.to(_I32) - py, mbw, mbh), parts, y_dc, y_ac,
+        y2_dc, y2_ac)
+    uz, ur = transform_mb_chroma(
+        _mb_blocks_chroma(u.to(_I32) - pu, mbw, mbh), uv_dc, uv_ac)
+    vz, vr = transform_mb_chroma(
+        _mb_blocks_chroma(v.to(_I32) - pv, mbw, mbh), uv_dc, uv_ac)
+    pack = torch.cat([lz, uz, vz, y2z[:, None]], dim=1).to(torch.int16)
+    rec = [(plane(r, mbw, mbh) + p).clamp(0, 255).to(torch.uint8)
+           for plane, r, p in ((_luma_from_mb_blocks, rr, py),
+                               (_chroma_from_mb_blocks, ur, pu),
+                               (_chroma_from_mb_blocks, vr, pv))]
+    if state is None:
+        mbc = mbw * mbh
+        return (pack, torch.full((mbc,), sid, dtype=_I32, device=y.device),
+                *rec, torch.ones((mbc,), dtype=torch.bool, device=y.device))
+    levels_pack, seg_ids, ry, ru, rv, active = state
+    act = cur_ssim <= ssim_target
+    active.copy_(act)
+    levels_pack.copy_(torch.where(act[:, None, None], pack, levels_pack))
+    seg_ids.copy_(torch.where(act, sid, seg_ids))
+    for plane, new, n in zip((ry, ru, rv), rec, (16, 8, 8)):
+        plane.copy_(_mb_where(act, new, plane, n))
+    return state
+
+
+def _check_pass(planes, preds, parts, cur_ssim, state) -> None:
+    y = planes[0]
+    H, W = y.shape if y.dim() == 2 else (0, 0)
+    mbc = (H // 16) * (W // 16)
+    shapes = ((H, W), (H // 2, W // 2), (H // 2, W // 2))
+    if H == 0 or W == 0 or H % 16 or W % 16:
+        raise ValueError(f"inter_pass: y must be an (H, W) plane of whole "
+                         f"MBs, got {tuple(y.shape)}")
+    ops = [(t, f"source {'yuv'[i]}", (torch.uint8,), shapes[i], False)
+           for i, t in enumerate(planes)]
+    ops += [(t, f"prediction {'yuv'[i]}", (torch.uint8, _I32), shapes[i],
+             False) for i, t in enumerate(preds)]
+    ops.append((parts, "parts", (_I32,), (mbc,), True))
+    if state is not None:
+        if len(state) != 6:
+            raise ValueError("inter_pass: state is (levels_pack, seg_ids, "
+                             "ry, ru, rv, active)")
+        ops.append((cur_ssim, "cur_ssim", (_I32,), (mbc,), True))
+        ops += [(t, what, (dt,), shape, True) for t, what, dt, shape in zip(
+            state, ("levels_pack", "seg_ids", "ry", "ru", "rv", "active"),
+            (torch.int16, _I32, torch.uint8, torch.uint8, torch.uint8,
+             torch.bool), ((mbc, 25, 16), (mbc,), *shapes, (mbc,)))]
+    for t, what, dts, shape, contiguous in ops:
+        if not isinstance(t, torch.Tensor) or t.device != y.device \
+                or t.device.type != "cuda":
+            raise ValueError(f"inter_pass: {what} must be a CUDA tensor on "
+                             f"{y.device}, or every input on the CPU")
+        layout_ok = t.is_contiguous() if contiguous else t.stride(-1) == 1
+        if t.dtype not in dts or tuple(t.shape) != shape or not layout_ok:
+            kind = "contiguous" if contiguous else "unit column stride"
+            raise ValueError(f"inter_pass: {what} must be a "
+                             f"{' or '.join(map(str, dts))} tensor of shape "
+                             f"{shape} ({kind}), got {t.dtype} "
+                             f"{tuple(t.shape)} strides {t.stride()}")
+    if state is not None and state[0].data_ptr() % 16:
+        raise ValueError("inter_pass: levels_pack must be 16-byte aligned")
+
+
+def inter_pass(y, u, v, pred_y, pred_u, pred_v, parts, sid: int, quant,
+               ssim_target: int = -1, cur_ssim=None, state=None):
+    """One segment pass (contract of `inter_pass_plain`): the
+    csrc/transform.cu kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if y.device.type == "cpu":
+        return inter_pass_plain(y, u, v, pred_y, pred_u, pred_v, parts, sid,
+                                quant, ssim_target, cur_ssim, state)
+    planes, preds = (y, u, v), (pred_y, pred_u, pred_v)
+    _check_pass(planes, preds, parts, cur_ssim, state)
+    from vp8oclenc_tpu_torch.ops import cuda_build
+    H, W = y.shape
+    mbc = (H // 16) * (W // 16)
+    first = state is None
+    if first:
+        dev = y.device
+        state = (torch.empty((mbc, 25, 16), dtype=torch.int16, device=dev),
+                 torch.empty((mbc,), dtype=_I32, device=dev),
+                 *(torch.empty(p.shape, dtype=torch.uint8, device=dev)
+                   for p in planes),
+                 torch.empty((mbc,), dtype=torch.bool, device=dev))
+    levels_pack, seg_ids, ry, ru, rv, active = state
+    desc = []
+    for t in (*planes, *preds, ry, ru, rv):
+        desc += [t.data_ptr(), t.element_size(), t.stride(0)]
+    rc = cuda_build.library("transform").vp8_inter_pass(
+        (ctypes.c_longlong * len(desc))(*desc), _ptr(parts),
+        None if first else _ptr(cur_ssim), _ptr(levels_pack),
+        _ptr(seg_ids), _ptr(active), mbc, W // 16, int(sid), int(first),
+        int(ssim_target), *(int(q) for q in quant),
+        ctypes.c_void_p(torch.cuda.current_stream(y.device).cuda_stream))
+    cuda_build.check(rc, "vp8_inter_pass")
+    inter_pass.launches += 1
+    return state
+
+
+inter_pass.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # the inter frame
 # ---------------------------------------------------------------------------
 
@@ -600,81 +743,49 @@ def inter_body(y, u, v, states, ref_valid, quant, ssim_target: int = -1,
     blk = torch.arange(nby * nbx, device=dev)
     sel_blk = ref_sel.reshape(mbh, 1, mbw, 1).expand(mbh, 2, mbw, 2) \
         .reshape(-1)
-    pred_y = _blocks8_to_plane(best_pred[sel_blk, blk], nby, nbx).to(_I32)
+    pred_y = _blocks8_to_plane(best_pred[sel_blk, blk], nby, nbx)
     pred_u, pred_v = mc_predict_selected_uv(
         torch.stack([s[1] for s in states]),
         torch.stack([s[2] for s in states]), mvs, ref_sel, H // 2,
         0 if shard is None else PAD_C_FULL)
 
-    res_y = _mb_blocks_luma(y.to(_I32) - pred_y, mbw, mbh)
-    res_u = _mb_blocks_chroma(u.to(_I32) - pred_u, mbw, mbh)
-    res_v = _mb_blocks_chroma(v.to(_I32) - pred_v, mbw, mbh)
-    pred_y_b = _mb_blocks_luma(pred_y, mbw, mbh)
-    pred_u_b = _mb_blocks_chroma(pred_u, mbw, mbh)
-    pred_v_b = _mb_blocks_chroma(pred_v, mbw, mbh)
-
-    def planes(yb, ub, vb):
-        return (_luma_from_mb_blocks(yb, mbw, mbh),
-                _chroma_from_mb_blocks(ub, mbw, mbh),
-                _chroma_from_mb_blocks(vb, mbw, mbh))
-
-    # progressive segment requantization LQ -> UQ.  st: levels y, y2, u, v,
-    # recon blocks y, u, v.  Every MB is active in the first pass (nothing
-    # is coded yet), so it needs no mask.
-    y_dc, y_ac, y2_dc, y2_ac, uv_dc, uv_ac = quant
+    # progressive segment requantization LQ -> UQ: each pass codes the MBs
+    # whose SSIM is still at or below the target (every MB in the first,
+    # where nothing is coded yet) and updates the state in place
     ssim_on = ssim_target >= 0
+    state = cur_ssim = None
     for i in range(4 if ssim_on else 1):
         sid = LQ_SEGMENT - i
-        lz, y2z, rr = transform_mb_luma(
-            res_y, parts, int(y_dc[sid]), int(y_ac[sid]), int(y2_dc[sid]),
-            int(y2_ac[sid]))
-        uz, ur = transform_mb_chroma(res_u, int(uv_dc[sid]), int(uv_ac[sid]))
-        vz, vr = transform_mb_chroma(res_v, int(uv_dc[sid]), int(uv_ac[sid]))
-        new = [lz, y2z, uz, vz, (pred_y_b + rr).clamp(0, 255),
-               (pred_u_b + ur).clamp(0, 255), (pred_v_b + vr).clamp(0, 255)]
-        if i == 0:
-            st = new
-            seg_ids = torch.full((mbc,), LQ_SEGMENT, dtype=_I32, device=dev)
-        else:
-            active = cur_ssim <= ssim_target     # taken before the pass
-            st = [torch.where(active.reshape(-1, *([1] * (n.dim() - 1))),
-                              n, s) for n, s in zip(new, st)]
-            seg_ids = torch.where(active, sid, seg_ids).to(_I32)
-        ry, ru, rv = planes(*st[4:])
+        state = inter_pass(y, u, v, pred_y, pred_u, pred_v, parts, sid,
+                           [q[sid] for q in quant], ssim_target, cur_ssim,
+                           state)
+        levels_pack, seg_ids, ry, ru, rv, active = state
         new_ssim = mb_ssim_fx(y, ry, u, ru, v, rv)
         cur_ssim = new_ssim if i == 0 \
             else torch.where(active, new_ssim, cur_ssim)
-    levels_y, levels_y2, levels_u, levels_v, rec_y_b, rec_u_b, rec_v_b = st
-    ry, ru, rv = (p.to(torch.uint8).contiguous() for p in (ry, ru, rv))
 
     modes = replaced = None
     if ssim_on:
-        from vp8oclenc_tpu_torch.ops.intra_replace import (
-            intra_replace_device, mb_patches_to_chroma_blocks,
-            mb_patches_to_luma_blocks)
+        from vp8oclenc_tpu_torch.ops.intra_replace import intra_replace_device
+        y_dc, y_ac, _, _, uv_dc, uv_ac = quant
         (applied, b_sid, b_modes, b_lv_y, b_lv_u, b_lv_v, b_ry, b_ru, b_rv,
          cur_ssim) = intra_replace_device(
             y, u, v, ry, ru, rv, cur_ssim, y_dc, y_ac, uv_dc, uv_ac,
             ssim_target, mbw, mbh, shard)
-        a1 = applied[:, None]
-        a2 = applied[:, None, None]
-        a3 = applied[:, None, None, None]
         seg_ids = torch.where(applied, b_sid, seg_ids)
         parts = torch.where(applied, ARE4X4, parts).to(_I32)
-        levels_y = torch.where(a2, b_lv_y, levels_y)
-        levels_y2 = torch.where(a1, 0, levels_y2)
-        levels_u = torch.where(a2, b_lv_u, levels_u)
-        levels_v = torch.where(a2, b_lv_v, levels_v)
-        rec_y_b = torch.where(a3, mb_patches_to_luma_blocks(b_ry), rec_y_b)
-        rec_u_b = torch.where(a3, mb_patches_to_chroma_blocks(b_ru), rec_u_b)
-        rec_v_b = torch.where(a3, mb_patches_to_chroma_blocks(b_rv), rec_v_b)
-        ry, ru, rv = (p.to(torch.uint8).contiguous()
-                      for p in planes(rec_y_b, rec_u_b, rec_v_b))
+        # a replaced MB has no Y2
+        b_pack = torch.cat([b_lv_y, b_lv_u, b_lv_v,
+                            torch.zeros_like(b_lv_u[:, :1])], dim=1)
+        levels_pack = torch.where(applied[:, None, None], b_pack,
+                                  levels_pack).to(torch.int16)
+        ry, ru, rv = (_mb_where(applied, b.reshape(
+            mbh, mbw, n, n).transpose(1, 2), p, n).to(torch.uint8)
+            .contiguous()
+            for b, p, n in ((b_ry, ry, 16), (b_ru, ru, 8), (b_rv, rv, 8)))
         replaced = applied.sum(dtype=_I32)
-        modes = torch.where(a1, b_modes, 0).to(torch.int8)
+        modes = torch.where(applied[:, None], b_modes, 0).to(torch.int8)
 
-    levels_pack = torch.cat([levels_y, levels_u, levels_v,
-                             levels_y2[:, None]], dim=1).to(torch.int16)
     meta = torch.cat([seg_ids[:, None], parts[:, None],
                       ref_sel.to(_I32)[:, None],
                       mvs.reshape(mbc, 8).to(_I32)], dim=1)

@@ -17,12 +17,14 @@ trial is one batched step over all MBs:
   * the trials run AQ -> HQ -> UQ under per-MB masks; nothing on this path
     waits for the host.
 
-The luma trial has two versions with one contract:
-  * `trial_luma_plain`: plain PyTorch on any device, the reference the
-    CUDA kernel is held against;
-  * `trial_luma`: for CUDA tensors it launches the hand-written kernel of
-    csrc/intra.cu, for CPU tensors it takes the plain version.
-The chroma trial and the controller around them are plain PyTorch.
+The luma and chroma trials have two versions with one contract each:
+  * `trial_luma_plain`, `trial_chroma_plain`: plain PyTorch on any
+    device, the references the CUDA kernels are held against;
+  * `trial_luma`, `trial_chroma`: for CUDA tensors they launch the
+    hand-written kernels of csrc/intra.cu and csrc/transform.cu (both
+    chroma planes in one launch), for CPU tensors they take the plain
+    versions.
+The controller around them is plain PyTorch.
 
 A row shard of a taller frame (the multi-GPU layer's tile ranks) needs
 two things from the shard above: its last recon row of each plane (the
@@ -50,20 +52,6 @@ def _plane_mb(plane: torch.Tensor, size: int) -> torch.Tensor:
     H, W = plane.shape
     b = plane.reshape(H // size, size, W // size, size)
     return b.transpose(1, 2).reshape(-1, size, size)
-
-
-def mb_patches_to_luma_blocks(p: torch.Tensor) -> torch.Tensor:
-    """(mbc, 16, 16) -> (mbc, 16, 4, 4) in-MB block raster order."""
-    mbc = p.shape[0]
-    return p.reshape(mbc, 4, 4, 4, 4).permute(0, 1, 3, 2, 4) \
-        .reshape(mbc, 16, 4, 4)
-
-
-def mb_patches_to_chroma_blocks(p: torch.Tensor) -> torch.Tensor:
-    """(mbc, 8, 8) -> (mbc, 4, 4, 4) in-MB block raster order."""
-    mbc = p.shape[0]
-    return p.reshape(mbc, 2, 4, 2, 4).permute(0, 1, 3, 2, 4) \
-        .reshape(mbc, 4, 4, 4)
 
 
 def _bordered_top_rows(recon: torch.Tensor, size: int, rpad: int,
@@ -252,6 +240,55 @@ def _trial_chroma(c_mb, ctop, cleft, ctl, dc_q: int, ac_q: int):
             rec.permute(0, 1, 3, 2, 4).reshape(mbc, 8, 8))
 
 
+def trial_chroma_plain(u_mb, v_mb, un, vn, dc_q: int, ac_q: int):
+    """The chroma trial of both planes: u_mb, v_mb (mbc, 8, 8) u8 source
+    patches, un and vn each (ctop (mbc, 8), cleft (mbc, 8), ctl (mbc,)) u8
+    frozen neighbours (`_frozen_chroma_neighbors`).  Returns (levels_u,
+    rec_u, levels_v, rec_v) as `_trial_chroma` gives them."""
+    return (*_trial_chroma(u_mb, *un, dc_q, ac_q),
+            *_trial_chroma(v_mb, *vn, dc_q, ac_q))
+
+
+def trial_chroma(u_mb, v_mb, un, vn, dc_q: int, ac_q: int):
+    """The chroma trial of both planes (contract of `trial_chroma_plain`):
+    one csrc/transform.cu launch for CUDA tensors, the plain version for
+    CPU tensors.  Operands are read through their strides."""
+    if u_mb.device.type == "cpu":
+        return trial_chroma_plain(u_mb, v_mb, un, vn, dc_q, ac_q)
+    mbc = u_mb.shape[0] if u_mb.dim() == 3 else 0
+    desc = []
+    for src, (top, left, tl) in ((u_mb, un), (v_mb, vn)):
+        for t, what, shape in ((src, "source", (mbc, 8, 8)),
+                               (top, "ctop", (mbc, 8)),
+                               (left, "cleft", (mbc, 8)),
+                               (tl, "ctl", (mbc,))):
+            if t.device != u_mb.device or t.device.type != "cuda":
+                raise ValueError(f"trial_chroma: {what} must be a CUDA "
+                                 f"tensor on {u_mb.device}, or every input "
+                                 f"on the CPU")
+            if t.dtype != _U8 or tuple(t.shape) != shape or mbc == 0:
+                raise ValueError(f"trial_chroma: {what} must be a uint8 "
+                                 f"tensor of shape {shape} with mbc > 0, "
+                                 f"got {t.dtype} {tuple(t.shape)}")
+            st = t.stride()
+            desc += [t.data_ptr(), *st, *([0] * (3 - len(st)))]
+    from vp8oclenc_tpu_torch.ops import cuda_build
+    dev = u_mb.device
+    levels = torch.empty((2, mbc, 4, 16), dtype=_I32, device=dev)
+    rec = torch.empty((2, mbc, 8, 8), dtype=_I32, device=dev)
+    rc = cuda_build.library("transform").vp8_trial_chroma(
+        (ctypes.c_longlong * len(desc))(*desc),
+        ctypes.c_void_p(levels.data_ptr()), ctypes.c_void_p(rec.data_ptr()),
+        mbc, int(dc_q), int(ac_q),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    cuda_build.check(rc, "vp8_trial_chroma")
+    trial_chroma.launches += 1
+    return levels[0], rec[0], levels[1], rec[1]
+
+
+trial_chroma.launches = 0
+
+
 def intra_replace_device(y, u, v, recon_y, recon_u, recon_v, cur_ssim,
                          seg_y_dc, seg_y_ac, seg_uv_dc, seg_uv_ac,
                          ssim_target: int, mbw: int, mbh: int, shard=None):
@@ -285,9 +322,8 @@ def intra_replace_device(y, u, v, recon_y, recon_u, recon_v, cur_ssim,
         active = cur <= ssim_target
         lv_y, md, ry_t = trial_luma(y_mb, ftop, fleft, int(seg_y_dc[sid]),
                                     int(seg_y_ac[sid]))
-        uq = (int(seg_uv_dc[sid]), int(seg_uv_ac[sid]))
-        lv_u, ru_t = _trial_chroma(u_mb, *un, *uq)
-        lv_v, rv_t = _trial_chroma(v_mb, *vn, *uq)
+        lv_u, ru_t, lv_v, rv_t = trial_chroma(
+            u_mb, v_mb, un, vn, int(seg_uv_dc[sid]), int(seg_uv_ac[sid]))
         test = mb_ssim_fx_16x16(y_mb, ry_t, u_mb, ru_t, v_mb, rv_t)
         # strictly better only; a later, finer trial overwrites an earlier
         # winner
