@@ -33,15 +33,18 @@ Phases (any failure exits non-zero before the result line):
      at 1, 7 and 8161 MBs; then the integer per-MB SSIM kernel against its
      plain version in every operand form its callers pass (whole planes
      with an int32 and a u8 recon, per-MB patches, non-contiguous views of
-     the planes), with edge MBs (identical, flat, all 0 against all 255,
-     all 255 against both), at 1920x1088, 3840x2160 and 16384x128, and at
-     1, 7 and 8161 MBs; then the transform pass kernel (one segment pass
-     of an inter frame) and the chroma trial kernel (csrc/transform.cu)
+     the planes: its vector path; misaligned planes: its strided path),
+     with edge MBs (identical, flat, all 0 against all 255, all 255
+     against both), at 1920x1088, 3840x2160 and 16384x128, timed on the
+     trials' patches, and at 1, 7 and 8161 MBs; then the transform pass
+     kernel (one segment pass of an inter frame with its MBs' SSIM and
+     the cur_ssim merge) and the chroma trial kernel (csrc/transform.cu)
      against their plain versions at 1920x1088, 3840x2160 and 16384x128,
      the pass four times at the SSIM segments' quantizers (the later
-     passes masked to about half the MBs) and twice at the extremes, with
-     +-255 residuals, the trial at the three SSIM quantizer pairs on
-     strided patches; outputs must be bit-identical; kernels are timed
+     passes masked to about half the MBs), twice at the extremes and
+     twice with a u8 chroma prediction, with +-255 residuals, the trial
+     at the three SSIM quantizer pairs on strided patches; outputs must
+     be bit-identical; kernels are timed
      by the card's clock (`cuda_ms`), plain versions with CUDA events
      around one call (`span_ms`);
   4. all-keyframe path: 10 synthetic 1920x1080 frames through
@@ -52,8 +55,8 @@ Phases (any failure exits non-zero before the result line):
   5. default-GOP path: 10 frames of a panned canvas with gop_size=150,
      altref_range=5 (1 keyframe, then inter frames over LAST, GOLDEN and
      ALTREF), counters as in 4; at least 8 inter frames, every kernel
-     launched (the transform pass and the SSIM kernel once per inter
-     frame), some vectors nonzero
+     launched (the transform pass once per inter frame; the SSIM kernel
+     never: the pass scores its MBs), some vectors nonzero
      and GOLDEN or ALTREF chosen somewhere;
      the inter device-chain time and the sequential host split; the first 3
      frames again on the CPU, whose bytes must be identical;
@@ -61,8 +64,8 @@ Phases (any failure exits non-zero before the result line):
      that get a fresh smooth gradient every frame, constant chroma, at
      -qmin 50 -qmax 112 -SSIM-target 98, gop_size=150: at least 8 inter
      frames, the luma and chroma trial kernels launched 3 times per inter
-     frame, the transform pass 4 times and the SSIM kernel 7 times (4
-     segment passes, 3 trials), some MBs
+     frame, the transform pass 4 times and the SSIM kernel 3 times (the
+     3 trials), some MBs
      replaced on some frame and never more than a sixth, more than one
      segment in use, no frame done again as a key; an SSIM-on inter frame
      dispatched with stream synchronization an error; the inter
@@ -909,10 +912,12 @@ def _ssim_inputs(mbw, mbh, seed, dev):
 
 def _ssim_forms(src, rec):
     """The operand forms the callers pass, as (label, wrapper, plain,
-    args): the inter path's whole planes (u8 source, int32 recon), the
-    same with a u8 recon, the trial path's per-MB patches (u8 luma source
-    and recon, chroma source cut by `_plane_mb`, int32 chroma recon), and
-    non-contiguous (mbh, mbw, n, n) views of the planes."""
+    args): whole planes (u8 source, int32 recon), the same with a u8
+    recon, the trial path's per-MB patches (u8 luma source and recon,
+    chroma source cut by `_plane_mb`, int32 chroma recon), and
+    non-contiguous (mbh, mbw, n, n) views of the planes, all on the
+    kernel's vector path; and on its strided path the planes one column
+    into wider buffers (misaligned)."""
     from vp8oclenc_tpu_torch import ssim_fx as S
     from vp8oclenc_tpu_torch.ops import intra_replace as IR
     planes = [t for pair in zip(src, rec) for t in pair]
@@ -923,7 +928,15 @@ def _ssim_forms(src, rec):
         patches += [IR._plane_mb(s_, 8), IR._plane_mb(r_, 8).contiguous()]
     views = [t.reshape(t.shape[0] // n, n, t.shape[1] // n, n).transpose(1, 2)
              for t, n in zip(planes, (16, 16, 8, 8, 8, 8))]
+    misaligned = []
+    for t in planes:
+        wide = torch.zeros((t.shape[0], t.shape[1] + 1), dtype=t.dtype,
+                           device=t.device)
+        wide[:, 1:] = t
+        misaligned.append(wide[:, 1:])
     return [("planes, int32 recon", S.mb_ssim_fx, S.mb_ssim_fx_plain, planes),
+            ("misaligned planes", S.mb_ssim_fx, S.mb_ssim_fx_plain,
+             misaligned),
             ("planes, u8 recon", S.mb_ssim_fx, S.mb_ssim_fx_plain, u8),
             ("patches", S.mb_ssim_fx_16x16, S.mb_ssim_fx_16x16_plain,
              patches),
@@ -941,20 +954,26 @@ def _ssim_same(what, src, rec):
 
 
 def _ssim_record(what, src, rec):
-    """The kernel on whole planes (the inter path's form) timed by the
-    card's clock, the plain version by events, and the bound: each u8
-    source and int32 recon byte read once, 4 bytes an MB written."""
+    """The kernel in its callers' form, the trials' per-MB patches (u8
+    source and luma recon, int32 chroma recon), timed by the card's
+    clock, the plain version by events, and the bound: each operand byte
+    read once, 4 bytes an MB written.  Beside it the whole planes against
+    an int32 recon (`planes_ms`)."""
     from vp8oclenc_tpu_torch import ssim_fx as S
-    planes = [t for pair in zip(src, rec) for t in pair]
+    forms = {label: args for label, _, _, args in _ssim_forms(src, rec)}
+    trial, planes = forms["patches"], forms["planes, int32 recon"]
     mbc = src[0].numel() // 256
-    ms = cuda_ms(lambda: S.mb_ssim_fx(*planes), reps=20)
-    _, pms = _plain(lambda: S.mb_ssim_fx_plain(*planes))
-    nbytes = sum(t.numel() * t.element_size() for t in planes) + 4 * mbc
+    ms = cuda_ms(lambda: S.mb_ssim_fx_16x16(*trial), reps=20)
+    planes_ms = cuda_ms(lambda: S.mb_ssim_fx(*planes), reps=20)
+    _, pms = _plain(lambda: S.mb_ssim_fx_16x16_plain(*trial))
+    nbytes = sum(t.numel() * t.element_size() for t in trial) + 4 * mbc
     bms, by = bound(nbytes, mbc * (384 * OPS_SSIM_PIXEL + OPS_SSIM_MB))
     log(f"  mb_ssim ({what}, {mbc} MBs): bit-exact in every form, kernel "
-        f"{ms:.4f} ms, plain {pms:.1f} ms, bound {bms:.5f} ms ({by}), share "
-        f"{bms / ms:.4f}")
-    return {"shape": what, "max_abs_err": 0, "ms": ms, "plain_ms": pms,
+        f"{ms:.4f} ms on the trials' patches ({nbytes / 1e6:.2f} MB; "
+        f"planes with an int32 recon {planes_ms:.4f} ms), plain {pms:.1f} "
+        f"ms, bound {bms:.5f} ms ({by}), share {bms / ms:.4f}")
+    return {"shape": what, "form": "trial patches", "max_abs_err": 0,
+            "ms": ms, "planes_ms": planes_ms, "plain_ms": pms,
             "bound_ms": bms, "bound_by": by, "share": bms / ms}
 
 
@@ -979,7 +998,8 @@ def phase_ssim(dev):
     row = rows["1920x1088"]
     return ({"max_abs_err": 0, "ms": [row["ms"]],
              "plain_ms": [row["plain_ms"]], "bound_ms": [row["bound_ms"]],
-             "bound_by": row["bound_by"]},
+             "bound_by": row["bound_by"], "form": row["form"],
+             "planes_ms": row["planes_ms"]},
             rows["3840x2160"], rows[f"{WIDEST_W}x{WIDEST_H}"])
 
 
@@ -1007,18 +1027,21 @@ def _pass_inputs(mbw, mbh, seed, dev):
 
 
 def _pass_same(what, src, pred, parts, cur, quants):
-    """The kernel's passes (the first, then masked ones at cur_ssim <= 0)
-    against the plain version's, every state bit-exact; one launch a
+    """The kernel's passes (the first, then masked ones at cur_ssim <= 0,
+    `cur` injected into both states before each) against the plain
+    version's, every state bit-exact, cur_ssim included; one launch a
     pass."""
     from vp8oclenc_tpu_torch.ops import inter as IN
     ks = ps = None
     for i, q in enumerate(quants):
-        c = cur if i else None
+        if i:
+            ks[6].copy_(cur)
+            ps[6].copy_(cur)
         before = IN.inter_pass.launches
-        ks = IN.inter_pass(*src, *pred, parts, 3 - i, q, 0, c, ks)
+        ks = IN.inter_pass(*src, *pred, parts, 3 - i, q, 0, ks)
         if IN.inter_pass.launches != before + 1:
             raise AssertionError("inter_pass did not count its launch")
-        ps = IN.inter_pass_plain(*src, *pred, parts, 3 - i, q, 0, c, ps)
+        ps = IN.inter_pass_plain(*src, *pred, parts, 3 - i, q, 0, ps)
         err = max_abs_err(ks, ps)
         if err:
             raise AssertionError(f"inter_pass ({what}, pass {i}, q={q}): "
@@ -1038,8 +1061,9 @@ def _trial_chroma_inputs(src, pred):
 
 
 def phase_transform(dev):
-    """The transform pass kernel (csrc/transform.cu inter_pass_kernel)
-    and the chroma trial kernel against their plain versions, bit-exact:
+    """The transform pass kernel with its SSIM (csrc/transform.cu
+    inter_pass_kernel) and the chroma trial kernel against their plain
+    versions, bit-exact:
     at 1920x1088 (8160 MBs), 3840x2160 (32400) and 16384x128 (8192, 1024
     MB columns).  The pass four times at the segment quantizers of
     -qmin 50 -qmax 112 (LQ first, then AQ, HQ, UQ over about half the MBs)
@@ -1068,13 +1092,18 @@ def phase_transform(dev):
         _pass_same(label, src, pred, parts, cur, quants)
         _pass_same(label, src, pred, parts, cur,
                    [(4, 4, 8, 8, 4, 4), (157, 284, 314, 440, 132, 284)])
+        u8_pred = [pred[0]] + [p.to(torch.uint8) for p in pred[1:]]
+        _pass_same(label + ", u8 chroma prediction", src, u8_pred, parts,
+                   cur, quants[:2])
         args = (*src, *pred, parts, 3, quants[0])
         ms = cuda_ms(lambda: IN.inter_pass(*args), reps=20)
         out, pms = _plain(lambda: IN.inter_pass_plain(*args))
+        # the first pass: cur_ssim written, not read
         nbytes = sum(t.numel() * t.element_size()
                      for t in (*src, *pred, parts, *out))
-        bms, by = bound(nbytes, mbc * (24 * OPS_TRANSFORM_BLOCK + OPS_Y2))
-        log(f"  inter_pass ({label}, {mbc} MBs): bit-exact over 4 + 2 "
+        bms, by = bound(nbytes, mbc * (24 * OPS_TRANSFORM_BLOCK + OPS_Y2
+                                       + 384 * OPS_SSIM_PIXEL + OPS_SSIM_MB))
+        log(f"  inter_pass ({label}, {mbc} MBs): bit-exact over 4 + 2 + 2 "
             f"passes, kernel {ms:.4f} ms, plain {pms:.1f} ms, bound "
             f"{bms:.5f} ms ({by}), share {bms / ms:.4f}")
         rec = {"inter_pass": {"shape": label, "max_abs_err": 0, "ms": ms,
@@ -1214,10 +1243,9 @@ def phase_default_gop(dev):
                 "loop_filter": LF.filter_planes,
                 "fullpel_search": IN.fullpel_search,
                 "qpel_search": IN.qpel_search,
-                "inter_pass": IN.inter_pass,
-                "mb_ssim": S.mb_ssim_cuda}
+                "inter_pass": IN.inter_pass}
     enc = Encoder(EncoderConfig(**cfg), W, H, device=dev)
-    for c in counters.values():
+    for c in (*counters.values(), S.mb_ssim_cuda):
         c.launches = 0
     stamps, out = [], []
     t0 = time.monotonic()
@@ -1237,11 +1265,14 @@ def phase_default_gop(dev):
         if n <= 0:
             raise AssertionError(f"{name} was never launched on the "
                                  f"default-GOP path")
-    for name in ("inter_pass", "mb_ssim"):    # one segment pass a frame
-        if launches[name] != n_inter:
-            raise AssertionError(f"{name} was launched {launches[name]} "
-                                 f"times for {n_inter} inter frames, not "
-                                 f"once each")
+    if launches["inter_pass"] != n_inter:     # one segment pass a frame
+        raise AssertionError(f"inter_pass was launched "
+                             f"{launches['inter_pass']} times for {n_inter} "
+                             f"inter frames, not once each")
+    if S.mb_ssim_cuda.launches:               # the pass scores its MBs
+        raise AssertionError(f"mb_ssim was launched "
+                             f"{S.mb_ssim_cuda.launches} times with SSIM "
+                             f"control off")
     gaps = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     log(f"  {N_FRAMES} frames {W}x{H} gop 150 ({n_inter} inter) in "
         f"{dt:.3f} s: {N_FRAMES / dt:.3f} fps end to end, median frame "
@@ -1392,9 +1423,10 @@ def phase_ssim_target(dev):
     if st.scene_changes_by_ssim + st.scene_changes_by_replaced \
             + st.scene_changes_by_color:
         raise AssertionError(f"a frame was done again as a key: {st}")
-    # four segment passes and three trials an inter frame
+    # four segment passes (each scoring its MBs) and three trials, each
+    # scored by mb_ssim, an inter frame
     for name, each in (("trial_luma", 3), ("trial_chroma", 3),
-                       ("inter_pass", 4), ("mb_ssim", 7)):
+                       ("inter_pass", 4), ("mb_ssim", 3)):
         if launches[name] != each * n_inter:
             raise AssertionError(f"{name} was launched {launches[name]} "
                                  f"times for {n_inter} inter frames, not "
@@ -2611,7 +2643,7 @@ def main() -> int:
     log(f"[time] {time.monotonic() - t0:.0f} s")
     log("[end-to-end] Encoder.encode_frames, SSIM target")
     ssim_launches = phase_ssim_target(dev)
-    for name in ("trial_luma", "trial_chroma"):
+    for name in ("trial_luma", "trial_chroma", "mb_ssim"):
         launches[name] = ssim_launches[name]
     log(f"[time] {time.monotonic() - t0:.0f} s")
     log("[end-to-end] redo-as-key with frames in flight")
@@ -2684,7 +2716,9 @@ def main() -> int:
             "library_ms": None, "bit_exact": r["max_abs_err"] == 0})
         if "chain_ms" in r:
             kernels[-1]["chain_ms"] = statistics.median(r["chain_ms"])
-        if name in ("mb_ssim", "inter_pass"):   # SSIM-on: 7 and 4 a frame
+        if "planes_ms" in r:          # mb_ssim: timed in the trials' form
+            kernels[-1].update(form=r["form"], planes_ms=r["planes_ms"])
+        if name in ("mb_ssim", "inter_pass"):   # SSIM-on: 3 and 4 a frame
             kernels[-1]["launches_ssim_target"] = ssim_launches[name]
         kernels[-1]["multirank_launches"] = multi[name]
         if name in modes:       # the kernel's row-shard or band mode

@@ -233,15 +233,15 @@ def test_default_gop_stream_card_equals_cpu(dev):
     frames = _moving(w, h, 5, seed=4)
     cfg = dict(qi_min=8, qi_max=30, gop_size=100, altref_range=3)
     counters = (I.luma_wavefront, IN.fullpel_search, IN.qpel_search,
-                LF.filter_planes, S.mb_ssim_cuda)
+                LF.filter_planes, IN.inter_pass, S.mb_ssim_cuda)
     before = [c.launches for c in counters]
     gpu = Encoder(EncoderConfig(**cfg), w, h, device=dev)
     a = list(gpu.encode_frames(frames))
     gpu.close()
     after = [c.launches for c in counters]
     # 1 keyframe, 4 inter frames: levels 3..0 hold blocks at 96x80; one
-    # SSIM launch an inter frame
-    assert [y - x for x, y in zip(before, after)] == [1, 16, 4, 5, 4]
+    # segment pass an inter frame, which scores its MBs itself
+    assert [y - x for x, y in zip(before, after)] == [1, 16, 4, 5, 4, 0]
     cpu = Encoder(EncoderConfig(**cfg), w, h, device="cpu")
     b = list(cpu.encode_frames(frames))
     cpu.close()
@@ -334,12 +334,14 @@ def test_trial_luma_edges_match_plain(dev, mbc):
 
 def _ssim_operands(mbw, mbh, seed, dev):
     """Every operand form the SSIM's callers pass, as (wrapper, plain,
-    args): u8 source planes against an int32 and a u8 recon (the inter
-    path), per-MB patches (the trial path: u8 luma, chroma source cut by
-    `_plane_mb`, int32 chroma recon) and non-contiguous (mbh, mbw, n, n)
-    views of the planes.  The first MBs are edge blocks: identical source
-    and recon, flat against flat, all 0 against all 255, all 255 against
-    all 255 and against all 0."""
+    args): u8 source planes against an int32 and a u8 recon, per-MB
+    patches (the trials: u8 luma, chroma source cut by `_plane_mb`, int32
+    chroma recon) and non-contiguous (mbh, mbw, n, n) views of the planes,
+    all on the kernel's vector path; and on its strided path the planes
+    one column into wider buffers (misaligned), and int32 sources with the
+    recon pairs swapped (the form read at run time).  The first MBs are
+    edge blocks: identical source and recon, flat against flat, all 0
+    against all 255, all 255 against all 255 and against all 0."""
     rng = np.random.default_rng(seed)
     sizes = (16, 8, 8)
     src = [rng.integers(0, 256, (mbh * n, mbw * n)).astype(np.uint8)
@@ -365,18 +367,28 @@ def _ssim_operands(mbw, mbh, seed, dev):
     views = [t.reshape(t.shape[0] // n, n, t.shape[1] // n, n).transpose(1, 2)
              for t, n in zip(planes, (16, 16, 8, 8, 8, 8))]
     assert mbw == 1 or not views[0].is_contiguous()
+    misaligned = []
+    for t in planes:
+        wide = torch.zeros((t.shape[0], t.shape[1] + 1), dtype=t.dtype,
+                           device=dev)
+        wide[:, 1:] = t
+        misaligned.append(wide[:, 1:])
+    mixed = [planes[1].contiguous(), u8[0], planes[2].to(torch.int32),
+             planes[3], u8[5], planes[4]]
     return [(S.mb_ssim_fx, S.mb_ssim_fx_plain, planes),
             (S.mb_ssim_fx, S.mb_ssim_fx_plain, u8),
             (S.mb_ssim_fx_16x16, S.mb_ssim_fx_16x16_plain, patches),
-            (S.mb_ssim_fx_16x16, S.mb_ssim_fx_16x16_plain, views)]
+            (S.mb_ssim_fx_16x16, S.mb_ssim_fx_16x16_plain, views),
+            (S.mb_ssim_fx, S.mb_ssim_fx_plain, misaligned),
+            (S.mb_ssim_fx, S.mb_ssim_fx_plain, mixed)]
 
 
 @pytest.mark.parametrize("mbw,mbh", [(120, 68), (240, 135), (1, 1),
                                      (7, 1), (8161, 1)])
 def test_mb_ssim_matches_plain(dev, mbw, mbh):
     """The SSIM kernel bit-exact against its plain version at 1080p (8160
-    MBs), UHD (32400), and 1, 7 and 8161 MBs, in every operand form, one
-    launch a call."""
+    MBs), UHD (32400), and 1, 7 and 8161 MBs, in every operand form and
+    on both its paths, one launch a call."""
     for fn, plain, args in _ssim_operands(mbw, mbh, mbw * mbh, dev):
         before = S.mb_ssim_cuda.launches
         k = fn(*args)
@@ -401,11 +413,11 @@ PASS_QUANTS = [(4, 4, 8, 8, 4, 4), (157, 284, 314, 440, 132, 284),
                (33, 41, 66, 51, 20, 30), (7, 9, 12, 14, 6, 8)]
 
 
-def _pass_operands(mbw, mbh, seed, dev):
+def _pass_operands(mbw, mbh, seed, dev, chroma=np.int32):
     """The transform pass's operands as the inter path passes them: u8
-    source planes, a u8 luma and int32 chroma prediction with +255 and
-    -255 residuals in MB 0, mixed partitionings, and for each later pass
-    a cur_ssim around 0 (about half the MBs active)."""
+    source planes, a u8 luma and an int32 (or u8) chroma prediction with
+    +255 and -255 residuals in MB 0, mixed partitionings, and for each
+    later pass a cur_ssim around 0 (about half the MBs active)."""
     rng = np.random.default_rng(seed)
     sizes = ((16 * mbh, 16 * mbw), (8 * mbh, 8 * mbw), (8 * mbh, 8 * mbw))
     src = [rng.integers(0, 256, s).astype(np.uint8) for s in sizes]
@@ -416,31 +428,65 @@ def _pass_operands(mbw, mbh, seed, dev):
         s[n // 2:n, :n], p[n // 2:n, :n] = 0, 255
     t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
     return ([t(a, np.uint8) for a in src],
-            [t(pred[0], np.uint8)] + [t(a, np.int32) for a in pred[1:]],
+            [t(pred[0], np.uint8)] + [t(a, chroma) for a in pred[1:]],
             t(rng.integers(0, 2, mbw * mbh), np.int32),
             [t(rng.integers(-3, 3, mbw * mbh), np.int32) for _ in range(4)])
 
 
 @pytest.mark.parametrize("mbw,mbh", [(1, 1), (7, 1), (8161, 1), (6, 5),
                                      (1024, 8)])
-def test_inter_pass_matches_plain(dev, mbw, mbh):
-    """The transform pass kernel bit-exact against its plain version at 1,
-    7 and 8161 MBs in a row, 96x80 and 16384x128: four passes, the first
-    over every MB, the others over the MBs at or below the target, one
-    launch each; every state tensor equal after every pass."""
-    src, pred, parts, curs = _pass_operands(mbw, mbh, mbw + mbh, dev)
+@pytest.mark.parametrize("chroma", [np.int32, np.uint8])
+def test_inter_pass_matches_plain(dev, mbw, mbh, chroma):
+    """The transform pass kernel with its SSIM bit-exact against its plain
+    version at 1, 7 and 8161 MBs in a row, 96x80 and 16384x128, with an
+    int32 and a u8 chroma prediction: four passes, the first over every
+    MB, the others over the MBs at or below the target (cur_ssim injected
+    into both states, so that the masks mix), one launch each; every
+    state tensor equal after every pass, cur_ssim included."""
+    src, pred, parts, curs = _pass_operands(mbw, mbh, mbw + mbh, dev, chroma)
     ks = ps = None
     for i, q in enumerate(PASS_QUANTS):
-        cur = curs[i] if i else None
+        if i:
+            ks[6].copy_(curs[i])
+            ps[6].copy_(curs[i])
         before = IN.inter_pass.launches
-        ks = IN.inter_pass(*src, *pred, parts, 3 - i, q, 0, cur, ks)
+        ks = IN.inter_pass(*src, *pred, parts, 3 - i, q, 0, ks)
         assert IN.inter_pass.launches == before + 1
-        ps = IN.inter_pass_plain(*src, *pred, parts, 3 - i, q, 0, cur, ps)
+        ps = IN.inter_pass_plain(*src, *pred, parts, 3 - i, q, 0, ps)
         torch.cuda.synchronize()
+        assert len(ks) == len(ps) == 7
         assert all(a.dtype == b.dtype and torch.equal(a, b)
                    for a, b in zip(ks, ps)), i
     if mbw * mbh > 1:
         assert len(torch.unique(ks[1])) > 1         # the masks mixed them
+
+
+@pytest.mark.parametrize("chroma", [np.int32, np.uint8])
+def test_inter_pass_strided_path_matches_plain(dev, chroma):
+    """The transform pass's strided path, which the launcher takes when a
+    plane's rows are not aligned for vector loads: the source and
+    prediction planes one column into wider buffers (96x80), a masked
+    pass after a first one."""
+    src, pred, parts, curs = _pass_operands(6, 5, 11, dev, chroma)
+
+    def shifted(t):
+        wide = torch.zeros((t.shape[0], t.shape[1] + 1), dtype=t.dtype,
+                           device=dev)
+        wide[:, 1:] = t
+        return wide[:, 1:]
+
+    src, pred = [shifted(t) for t in src], [shifted(t) for t in pred]
+    ks = IN.inter_pass(*src, *pred, parts, 3, PASS_QUANTS[0])
+    ps = IN.inter_pass_plain(*src, *pred, parts, 3, PASS_QUANTS[0])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(ks, ps))
+    for state in (ks, ps):
+        state[6].copy_(curs[1])
+    ks = IN.inter_pass(*src, *pred, parts, 2, PASS_QUANTS[1], 0, ks)
+    ps = IN.inter_pass_plain(*src, *pred, parts, 2, PASS_QUANTS[1], 0, ps)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(ks, ps))
+    assert 0 < int(ks[5].sum()) < 30                # the mask mixed them
 
 
 @pytest.mark.parametrize("mbc", [1, 7, 8161, 30, 8192])
@@ -475,8 +521,11 @@ def test_transform_kernels_refuse_mixed_devices(dev):
     with pytest.raises(ValueError):
         IN.inter_pass(src[0][:8], *src[1:], *pred, parts, 3, PASS_QUANTS[0])
     state = IN.inter_pass(*src, *pred, parts, 3, PASS_QUANTS[0])
-    with pytest.raises(ValueError):                 # a later pass needs it
-        IN.inter_pass(*src, *pred, parts, 2, PASS_QUANTS[1], 0, None, state)
+    with pytest.raises(ValueError):                 # cur_ssim is missing
+        IN.inter_pass(*src, *pred, parts, 2, PASS_QUANTS[1], 0, state[:6])
+    with pytest.raises(ValueError):                 # chroma types differ
+        IN.inter_pass(*src, pred[0], pred[1], pred[2].to(torch.uint8),
+                      parts, 3, PASS_QUANTS[0])
     c = torch.zeros((2, 8, 8), dtype=torch.uint8, device=dev)
     nb = (c[:, 0], c[:, 1], c[:, 0, 0])
     with pytest.raises(ValueError):
@@ -487,24 +536,26 @@ def test_transform_kernels_refuse_mixed_devices(dev):
 
 def test_inter_chain_launches_transform_kernels_without_sync(dev):
     """An inter frame's dispatch, with SSIM control off and on, goes
-    through the transform pass kernel (1 and 4 launches) and the chroma
-    trial kernel (3 launches with SSIM on) with stream synchronization an
-    error."""
+    through the transform pass kernel (1 and 4 launches), the chroma
+    trial kernel and the SSIM kernel (3 launches each with SSIM on, for
+    the trials; none with it off: the passes score their MBs) with stream
+    synchronization an error."""
     from vp8oclenc_tpu_torch.pipeline.encoder import _own_padded
     for cfg, frames, passes, trials in (
             (dict(qi_min=8, qi_max=30), _moving(96, 80, 3, seed=6), 1, 0),
             (SSIM_CFG, _replacement(96, 80, 3, seed=7), 4, 3)):
+        counters = (IN.inter_pass, IR.trial_chroma, S.mb_ssim_cuda)
         enc = Encoder(EncoderConfig(**cfg), 96, 80, device=dev)
         list(enc.encode_frames(frames[:2]))      # key, then warm constants
-        before = IN.inter_pass.launches, IR.trial_chroma.launches
+        before = [c.launches for c in counters]
         torch.cuda.set_sync_debug_mode("error")
         try:
             fd, seg = enc._frame_pixels(_own_padded(frames[2]))
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert not fd.is_key
-        assert (IN.inter_pass.launches - before[0],
-                IR.trial_chroma.launches - before[1]) == (passes, trials)
+        assert [c.launches - b for c, b in zip(counters, before)] == [
+            passes, trials, trials]
         enc.close()
 
 
@@ -542,10 +593,10 @@ def test_ssim_stream_card_equals_cpu(dev):
         a.append(payload)
         replaced += gpu.last_frame_stats["replaced"]
     gpu.close()
-    # 1 keyframe, 4 inter frames, three trials each, no redo; the SSIM of
-    # four segment passes and three trials
+    # 1 keyframe, 4 inter frames, three trials each, no redo; the SSIM
+    # kernel scores the three trials (the passes score their own MBs)
     assert IR.trial_luma.launches == before[0] + 12
-    assert S.mb_ssim_cuda.launches == before[1] + 28
+    assert S.mb_ssim_cuda.launches == before[1] + 12
     assert replaced > 0
     cpu = Encoder(EncoderConfig(**SSIM_CFG), w, h, device="cpu")
     b = list(cpu.encode_frames(frames))

@@ -17,6 +17,7 @@ from vp8oclenc_tpu.ssim_fx import mb_ssim_fx as np_mb_ssim_fx
 from vp8oclenc_tpu.ssim_fx import mb_ssim_fx_16x16 as np_mb_ssim_fx_16x16
 from vp8oclenc_tpu.ssim_fx import target_fx
 from vp8oclenc_tpu_torch import ssim_fx as TS
+from vp8oclenc_tpu_torch.ops import inter as TI
 from vp8oclenc_tpu_torch.ops import intra_replace as TR
 from vp8oclenc_tpu_torch.ops import transforms as TT
 from vp8oclenc_tpu_torch.ops.predict import bpred_all_modes
@@ -137,6 +138,49 @@ def test_mb_ssim_patches_match(mbc, rec_dtype):
         got = TS.mb_ssim_fx_16x16(*form)
         assert got.dtype == torch.int32
         _eq(got.reshape(-1), want, "torch patches")
+
+
+# quantizers far above VP8's: every level is 0, so a pass's recon is its
+# prediction, whatever the residual
+NO_RESIDUAL = (5000, 5000, 100000, 100000, 5000, 5000)
+
+
+@pytest.mark.parametrize("case", ["0_vs_255", "dc_penalty", "inactive"])
+def test_pass_scores_edge_mbs(case):
+    """The segment pass's own score (inter_pass, which csrc/transform.cu
+    holds to its plain version on the card) of edge MBs against the JAX
+    package's mb_ssim_fx on the recon the pass wrote: MB 0 an all-0
+    source against an all-255 recon (n*q1 - s1^2 leaves int32 in the JAX
+    package's arithmetic, not in the port's), or a flat 200 against a
+    flat 100 (|s1 - s2| > 4n: the DC penalty); or, in a second pass, MB 0
+    inactive, its cur_ssim left as given."""
+    rng = np.random.default_rng(len(case))
+    src = [rng.integers(0, 256, (n, n)).astype(np.uint8) for n in (32, 16, 16)]
+    pred = [np.clip(a.astype(np.int32) + rng.integers(-20, 21, a.shape), 0,
+                    255).astype(np.uint8) for a in src]
+    pair = {"0_vs_255": (0, 255), "dc_penalty": (200, 100)}.get(case)
+    for a, b, n in zip(src, pred, (16, 8, 8)):
+        if pair:
+            a[:n, :n], b[:n, :n] = pair
+    t = [torch.from_numpy(a) for a in src + pred]
+    parts = torch.tensor([0, 1, 0, 1], dtype=torch.int32)
+    state = TI.inter_pass(*t, parts, 3, NO_RESIDUAL)
+    if case == "inactive":
+        state[6].copy_(torch.tensor([7, -1, 0, 5], dtype=torch.int32))
+        TI.inter_pass(*t, parts, 2, (7, 9, 12, 14, 6, 8), 0, state)
+        assert state[5].tolist() == [False, True, True, False]
+        assert state[6][0] == 7 and state[6][3] == 5
+    recon = [a.numpy() for a in state[2:5]]
+    planes = [a for pair_ in zip(src, recon) for a in pair_]
+    want = np_mb_ssim_fx(*planes)
+    active = state[5].numpy()
+    _eq(state[6][active], want[active], "pass score")
+    _eq(state[6][active], np.asarray(np_mb_ssim_fx(
+        *(jnp.asarray(a) for a in planes), xp=jnp))[active], "jax")
+    if pair:
+        assert all((r[:n, :n] == pair[1]).all()
+                   for r, n in zip(recon, (16, 8, 8)))
+        assert state[6][0] < 0 < state[6][1]      # the penalty weighs in
 
 
 def test_mb_ssim_refuses_mixed_devices_and_types():

@@ -1,5 +1,6 @@
-"""The inter frame's segment passes (ops/inter.py:inter_pass_plain, the
-plain version of csrc/transform.cu's inter_pass_kernel) and the SSIM
+"""The inter frame's segment passes with their integer SSIM
+(ops/inter.py:inter_pass_plain, the plain version of csrc/transform.cu's
+inter_pass_kernel) and the SSIM
 controller's two-plane chroma trial (ops/intra_replace.py:
 trial_chroma_plain, of trial_chroma_kernel) against the JAX package on the
 same seeded inputs, with exact equality (tolerance 0: every value is an
@@ -8,10 +9,11 @@ integer and both sides compute in int32).
 The JAX side is composed as its `seg_pass` composes it
 (vp8oclenc_tpu/ops/inter.py:922-959): `transform_mb_luma`,
 `transform_mb_chroma`, the clamped recon and `jnp.where` merges under the
-pass's mask, the first pass with every MB at UNCODED_FX.  JAX runs its XLA
+pass's mask, the MB scores of `ssim_fx.mb_ssim_fx` (xp=jnp) merged into
+cur_ssim, the first pass with every MB at UNCODED_FX.  JAX runs its XLA
 path on the CPU (no Pallas kernel is involved).  On CPU tensors the
 wrappers `inter_pass` and `trial_chroma` take the plain versions."""
-from functools import lru_cache
+from functools import lru_cache, partial
 
 import numpy as np
 import pytest
@@ -22,7 +24,7 @@ import jax.numpy as jnp
 
 from vp8oclenc_tpu.ops import inter as JI
 from vp8oclenc_tpu.ops import intra_replace as JR
-from vp8oclenc_tpu.ssim_fx import UNCODED_FX
+from vp8oclenc_tpu.ssim_fx import UNCODED_FX, mb_ssim_fx
 from vp8oclenc_tpu_torch.ops import inter as TI
 from vp8oclenc_tpu_torch.ops import intra_replace as TR
 
@@ -65,6 +67,9 @@ def _pass_inputs(w, h, seed):
     return src, pred, parts, rng
 
 
+_jax_mb_ssim = jax.jit(partial(mb_ssim_fx, xp=jnp))
+
+
 @lru_cache(maxsize=None)
 def _jax_transforms(q):
     """JAX's transform_mb_luma and transform_mb_chroma at the quantizers
@@ -74,8 +79,9 @@ def _jax_transforms(q):
 
 
 def _jax_passes(src, pred, parts, quants, curs):
-    """The JAX package's passes: state after each, as the port lays it
-    out (levels_pack i16, seg_ids, recon planes u8, active)."""
+    """The JAX package's passes, pass i starting from cur_ssim curs[i]:
+    state after each, as the port lays it out (levels_pack i16, seg_ids,
+    recon planes u8, active, cur_ssim)."""
     h, w = src[0].shape
     mbw, mbh = w // 16, h // 16
     mbc = mbw * mbh
@@ -97,7 +103,8 @@ def _jax_passes(src, pred, parts, quants, curs):
     out = []
     for i, (q, cur) in enumerate(zip(quants, curs)):
         sid = 3 - i
-        active = jnp.asarray(cur) <= TARGET
+        cur = jnp.asarray(cur)
+        active = cur <= TARGET
         luma, chroma = _jax_transforms(q)
         lz, y2z, rr = luma(res_y, jparts)
         uz, ur = chroma(res_u)
@@ -115,8 +122,10 @@ def _jax_passes(src, pred, parts, quants, curs):
         planes = (JI._luma_from_mb_blocks(rec[0], mbw, mbh),
                   JI._chroma_from_mb_blocks(rec[1], mbw, mbh),
                   JI._chroma_from_mb_blocks(rec[2], mbw, mbh))
+        cur = jnp.where(active, _jax_mb_ssim(*(t for pair in zip(s, planes)
+                                               for t in pair)), cur)
         out.append((pack, seg, *(a.astype(jnp.uint8) for a in planes),
-                    active))
+                    active, cur))
     return out
 
 
@@ -126,7 +135,9 @@ def _jax_passes(src, pred, parts, quants, curs):
 def test_inter_pass_matches_jax(size, first_q, npass):
     """1 or 4 passes (LQ -> UQ), the quantizers alternating between the
     two extremes, against the JAX package's seg_pass composed from its
-    functions; every pass's state equal."""
+    functions; every pass's state equal, cur_ssim included.  Before each
+    later pass both sides take the same injected cur_ssim, so that the
+    masks mix whatever the scores."""
     w, h = size
     src, pred, parts, rng = _pass_inputs(w, h, w + h + first_q[0] + npass)
     mbc = parts.size
@@ -143,15 +154,17 @@ def test_inter_pass_matches_jax(size, first_q, npass):
     tparts = torch.from_numpy(parts)
     state = None
     for i, q in enumerate(quants):
-        cur = torch.from_numpy(curs[i]) if i else None
+        if i:
+            state[6].copy_(torch.from_numpy(curs[i]))
         state = TI.inter_pass(y, u, v, py, pu, pv, tparts, 3 - i, q, TARGET,
-                              cur, state)
-        for g, j, what in zip(state, want[i], ("levels_pack", "seg_ids",
-                                               "ry", "ru", "rv", "active")):
+                              state)
+        assert len(state) == len(want[i]) == len(TI._STATE)
+        for g, j, what in zip(state, want[i], TI._STATE):
             _eq(g, j, f"pass {i} {what}")
     assert [t.dtype for t in state] == [torch.int16, torch.int32,
                                         torch.uint8, torch.uint8,
-                                        torch.uint8, torch.bool]
+                                        torch.uint8, torch.bool,
+                                        torch.int32]
     if npass > 1 and mbc > 1:
         seg = state[1].numpy()
         assert len(np.unique(seg)) > 1            # masks mixed the segments
@@ -162,21 +175,25 @@ def test_inter_pass_matches_jax(size, first_q, npass):
 
 def test_inter_pass_in_place():
     """A later pass writes into the state it is given and leaves its
-    inactive MBs as earlier passes wrote them."""
+    inactive MBs as earlier passes wrote them, their cur_ssim included."""
     src, pred, parts, _ = _pass_inputs(96, 80, 5)
     args = [torch.from_numpy(a) for a in src] + [
         torch.from_numpy(a.astype(np.int32)) for a in pred] + [
         torch.from_numpy(parts)]
     state = TI.inter_pass(*args, 3, LOW)
-    before = [t.clone() for t in state]
+    scores = state[6].clone()
     cur = torch.arange(parts.size, dtype=torch.int32) % 2   # odd: inactive
-    out = TI.inter_pass(*args, 2, HIGH, 0, cur, state)
+    state[6].copy_(cur)
+    before = [t.clone() for t in state]
+    out = TI.inter_pass(*args, 2, HIGH, 0, state)
     assert all(a is b for a, b in zip(out, state))
     active = cur == 0
     assert torch.equal(state[5], active)
     assert torch.equal(state[0][~active], before[0][~active])
     assert not torch.equal(state[0][active], before[0][active])
     assert (state[1][~active] == 3).all() and (state[1][active] == 2).all()
+    assert torch.equal(state[6][~active], cur[~active])
+    assert (state[6][active] > 0).all() and (scores > 0).all()
 
 
 def _chroma_inputs(w, h, seed):

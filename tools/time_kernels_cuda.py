@@ -24,12 +24,27 @@ there), and `*_uhd_strip` on its top 4 MB rows, held and timed as the
 others.  The cases `*_row1920` time the three row kernels on one MB row
 of the 1080p frame (1920x16), which no row above holds up: their time
 over the row's steps is a step's latency (chip_smoke.py's chain figure).
+The cases `seg_pass_first` and `seg_pass_masked` time one segment pass
+of the inter frame as `inter_body` runs it, with its MBs' SSIM and the
+cur_ssim merge, on chip_smoke.py's pass inputs at the first segment's
+quantizers of -qmin 50 -qmax 112: the first pass (every MB; the SSIM-off
+frame's only pass) and a later one over the MBs whose score is at or
+below the median (about half; the pass recodes them at the same
+quantizers, so the mask holds from launch to launch).  For a tree whose
+`inter_pass` takes `cur_ssim` as an argument (before the pass scored its
+MBs) that is `inter_pass`, `ssim_fx.mb_ssim_fx` and, in the later pass,
+a `torch.where`.  `mb_ssim_trial` times the integer SSIM on the SSIM
+controller's trial operands (u8 source patches, u8 luma and int32 chroma
+recon patches) with chip_smoke.py's edge MBs.  `--uhd` adds the three at
+3840x2160 (`*_uhd`).
 `--only` keeps the cases whose names start with one of the given
 prefixes (`--only luma_wavefront,loop_filter`).
 """
 from __future__ import annotations
 
 import argparse
+import copy
+import inspect
 import json
 import os
 import statistics
@@ -139,8 +154,11 @@ def main() -> int:
         cases[f"trial_luma_{name}"] = (
             lambda q=q: IR.trial_luma(y_mb, ftop, fleft, *q),
             lambda q=q: IR.trial_luma_plain(y_mb, ftop, fleft, *q))
+    cases.update(_ssim_cases(dev, y.shape[1] // 16, y.shape[0] // 16, ""))
     if opts.uhd:
         cases.update(_uhd_cases(dev))
+        from chip_smoke import UHD_H, UHD_W
+        cases.update(_ssim_cases(dev, UHD_W // 16, UHD_H // 16, "_uhd"))
     if opts.only:
         keep = tuple(opts.only.split(","))
         cases = {k: v for k, v in cases.items() if k.startswith(keep)}
@@ -158,6 +176,55 @@ def main() -> int:
                    for lvl in levels) for k in ("min", "median")}
     print(json.dumps(out), flush=True)
     return 0
+
+
+def _ssim_cases(dev, mbw, mbh, suffix):
+    """{name: (kernel, plain)} for one segment pass with its SSIM, first
+    and masked (see the module's docstring), and the SSIM on the trials'
+    operands, at mbw x mbh MBs.  A masked call updates its state in
+    place: the kernel and the plain version each get their own copy."""
+    from chip_smoke import SSIM_CFG, _pass_inputs, _ssim_forms, _ssim_inputs
+    from vp8oclenc_tpu_torch import ssim_fx as S
+    from vp8oclenc_tpu_torch.config import EncoderConfig
+    from vp8oclenc_tpu_torch.ops import inter as IN
+    from vp8oclenc_tpu_torch.pipeline.segments import prepare_segments
+    src, pred, parts, _ = _pass_inputs(mbw, mbh, mbw + mbh, dev)
+    seg = prepare_segments(EncoderConfig(**SSIM_CFG), src[0].cpu().numpy(),
+                           False, False)
+    q = [int(a[3]) for a in (seg.y_dc_q, seg.y_ac_q, seg.y2_dc_q,
+                             seg.y2_ac_q, seg.uv_dc_q, seg.uv_ac_q)]
+    y, u, v = src
+    fused = "cur_ssim" not in inspect.signature(IN.inter_pass).parameters
+
+    def first(pass_, ssim):
+        state = pass_(*src, *pred, parts, 3, q)
+        return state if fused else (*state, ssim(y, state[2], u, state[3],
+                                                 v, state[4]))
+
+    def masked(pass_, ssim, state, target):
+        if fused:
+            return pass_(*src, *pred, parts, 2, q, target, state)
+        cur = state[-1]
+        st = pass_(*src, *pred, parts, 2, q, target, cur, state[:-1])
+        return (*st, torch.where(st[5], ssim(y, st[2], u, st[3], v, st[4]),
+                                 cur))
+
+    start = first(IN.inter_pass, S.mb_ssim_fx)
+    target = int(start[-1].float().median())
+    k_state, p_state = start, copy.deepcopy(start)
+    sf, sr = _ssim_inputs(mbw, mbh, mbw + mbh, dev)
+    trial = {label: a for label, _, _, a in _ssim_forms(sf, sr)}["patches"]
+    return {
+        "seg_pass_first" + suffix: (
+            lambda: first(IN.inter_pass, S.mb_ssim_fx),
+            lambda: first(IN.inter_pass_plain, S.mb_ssim_fx_plain)),
+        "seg_pass_masked" + suffix: (
+            lambda: masked(IN.inter_pass, S.mb_ssim_fx, k_state, target),
+            lambda: masked(IN.inter_pass_plain, S.mb_ssim_fx_plain, p_state,
+                           target)),
+        "mb_ssim_trial" + suffix: (
+            lambda: S.mb_ssim_fx_16x16(*trial),
+            lambda: S.mb_ssim_fx_16x16_plain(*trial))}
 
 
 def _uhd_cases(dev):

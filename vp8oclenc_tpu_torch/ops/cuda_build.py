@@ -44,7 +44,7 @@ _SIGNATURES = {
                             _I, _P],
     },
     "ssim": {
-        "vp8_mb_ssim": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "vp8_mb_ssim": [_P, _P, _I, _I, _P],
     },
     "transform": {
         "vp8_inter_pass": [_P] * 6 + [_I] * 11 + [_P],

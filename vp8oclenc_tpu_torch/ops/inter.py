@@ -34,9 +34,10 @@ each:
   * `fullpel_search`, `qpel_search`, `inter_pass`: for CUDA tensors they
     launch the hand-written kernels of csrc/search.cu and
     csrc/transform.cu, for CPU tensors they take the plain versions.
-A segment pass (residual, transforms with Y2, recon, written in place
-for the pass's MBs) is one `inter_pass` launch and one integer SSIM
-launch (ssim_fx.mb_ssim_fx).  Chroma MC is plain PyTorch on either device.
+A segment pass (residual, transforms with Y2, recon, the MB's integer
+SSIM and its merge into cur_ssim, written in place for the pass's MBs, as
+the JAX package's `seg_pass` fuses them) is one `inter_pass` launch.
+Chroma MC is plain PyTorch on either device.
 """
 from __future__ import annotations
 
@@ -45,7 +46,7 @@ import ctypes
 import torch
 
 from vp8oclenc_tpu_torch.ops import transforms as T
-from vp8oclenc_tpu_torch.ssim_fx import mb_ssim_fx
+from vp8oclenc_tpu_torch.ssim_fx import mb_ssim_fx_plain
 from vp8oclenc_tpu_torch.tables import (ARE4X4, ARE8X8, ARE16X16,
                                         LQ_SEGMENT, SIXTAP_FILTERS)
 
@@ -548,8 +549,7 @@ def _mb_where(mask, new, plane, n: int):
 
 
 def inter_pass_plain(y, u, v, pred_y, pred_u, pred_v, parts, sid: int,
-                     quant, ssim_target: int = -1, cur_ssim=None,
-                     state=None):
+                     quant, ssim_target: int = -1, state=None):
     """One segment pass of the inter frame over every MB.
 
     y (H, W), u/v (H/2, W/2) u8 source planes (MB-aligned); pred_* the
@@ -557,15 +557,17 @@ def inter_pass_plain(y, u, v, pred_y, pred_u, pred_v, parts, sid: int,
     partitionings; sid the segment and quant its six quantizers (y_dc,
     y_ac, y2_dc, y2_ac, uv_dc, uv_ac; host ints).  An active MB is coded:
     residual, fdct, quantization (a 16x16 MB's DCs through Y2), dequant,
-    idct, recon = clamp(pred + residual, 0, 255).
+    idct, recon = clamp(pred + residual, 0, 255), and the MB's
+    three-plane Q15 SSIM of source against recon (ssim_fx).
 
     state None: the first pass; every MB is active, and the state
     (levels_pack (mbc, 25, 16) i16: Y 16 zigzag blocks, U 4, V 4, Y2 (zero
     for split MBs); seg_ids (mbc,) i32; recon ry, ru, rv u8 planes;
-    active (mbc,) bool) is allocated and returned.  Otherwise the MBs with
-    cur_ssim <= ssim_target (cur_ssim (mbc,) i32, as before the pass) are
-    active, and `state` is updated in place for them (`active` for every
-    MB) and returned."""
+    active (mbc,) bool; cur_ssim (mbc,) i32, every MB's score) is
+    allocated and returned.  Otherwise the MBs whose state cur_ssim (as
+    before the pass) is <= ssim_target are active, and `state` is updated
+    in place for them (`active` for every MB) and returned: cur_ssim is
+    where(active, new score, cur_ssim), the JAX `seg_pass`'s merge."""
     H, W = y.shape
     mbw, mbh = W // 16, H // 16
     y_dc, y_ac, y2_dc, y2_ac, uv_dc, uv_ac = (int(q) for q in quant)
@@ -582,21 +584,27 @@ def inter_pass_plain(y, u, v, pred_y, pred_u, pred_v, parts, sid: int,
            for plane, r, p in ((_luma_from_mb_blocks, rr, py),
                                (_chroma_from_mb_blocks, ur, pu),
                                (_chroma_from_mb_blocks, vr, pv))]
+    new_ssim = mb_ssim_fx_plain(y, rec[0], u, rec[1], v, rec[2])
     if state is None:
         mbc = mbw * mbh
         return (pack, torch.full((mbc,), sid, dtype=_I32, device=y.device),
-                *rec, torch.ones((mbc,), dtype=torch.bool, device=y.device))
-    levels_pack, seg_ids, ry, ru, rv, active = state
+                *rec, torch.ones((mbc,), dtype=torch.bool, device=y.device),
+                new_ssim)
+    levels_pack, seg_ids, ry, ru, rv, active, cur_ssim = state
     act = cur_ssim <= ssim_target
     active.copy_(act)
     levels_pack.copy_(torch.where(act[:, None, None], pack, levels_pack))
     seg_ids.copy_(torch.where(act, sid, seg_ids))
     for plane, new, n in zip((ry, ru, rv), rec, (16, 8, 8)):
         plane.copy_(_mb_where(act, new, plane, n))
+    cur_ssim.copy_(torch.where(act, new_ssim, cur_ssim))
     return state
 
 
-def _check_pass(planes, preds, parts, cur_ssim, state) -> None:
+_STATE = ("levels_pack", "seg_ids", "ry", "ru", "rv", "active", "cur_ssim")
+
+
+def _check_pass(planes, preds, parts, state) -> None:
     y = planes[0]
     H, W = y.shape if y.dim() == 2 else (0, 0)
     mbc = (H // 16) * (W // 16)
@@ -606,18 +614,17 @@ def _check_pass(planes, preds, parts, cur_ssim, state) -> None:
                          f"MBs, got {tuple(y.shape)}")
     ops = [(t, f"source {'yuv'[i]}", (torch.uint8,), shapes[i], False)
            for i, t in enumerate(planes)]
-    ops += [(t, f"prediction {'yuv'[i]}", (torch.uint8, _I32), shapes[i],
-             False) for i, t in enumerate(preds)]
+    ops += [(t, f"prediction {'yuv'[i]}",
+             (torch.uint8, _I32) if i else (torch.uint8,), shapes[i], False)
+            for i, t in enumerate(preds)]
     ops.append((parts, "parts", (_I32,), (mbc,), True))
     if state is not None:
-        if len(state) != 6:
-            raise ValueError("inter_pass: state is (levels_pack, seg_ids, "
-                             "ry, ru, rv, active)")
-        ops.append((cur_ssim, "cur_ssim", (_I32,), (mbc,), True))
+        if len(state) != len(_STATE):
+            raise ValueError(f"inter_pass: state is ({', '.join(_STATE)})")
         ops += [(t, what, (dt,), shape, True) for t, what, dt, shape in zip(
-            state, ("levels_pack", "seg_ids", "ry", "ru", "rv", "active"),
-            (torch.int16, _I32, torch.uint8, torch.uint8, torch.uint8,
-             torch.bool), ((mbc, 25, 16), (mbc,), *shapes, (mbc,)))]
+            state, _STATE, (torch.int16, _I32, torch.uint8, torch.uint8,
+                            torch.uint8, torch.bool, _I32),
+            ((mbc, 25, 16), (mbc,), *shapes, (mbc,), (mbc,)))]
     for t, what, dts, shape, contiguous in ops:
         if not isinstance(t, torch.Tensor) or t.device != y.device \
                 or t.device.type != "cuda":
@@ -630,20 +637,24 @@ def _check_pass(planes, preds, parts, cur_ssim, state) -> None:
                              f"{' or '.join(map(str, dts))} tensor of shape "
                              f"{shape} ({kind}), got {t.dtype} "
                              f"{tuple(t.shape)} strides {t.stride()}")
+    if preds[1].dtype != preds[2].dtype:
+        raise ValueError(f"inter_pass: the chroma predictions must share a "
+                         f"dtype, got {preds[1].dtype} and {preds[2].dtype}")
     if state is not None and state[0].data_ptr() % 16:
         raise ValueError("inter_pass: levels_pack must be 16-byte aligned")
 
 
 def inter_pass(y, u, v, pred_y, pred_u, pred_v, parts, sid: int, quant,
-               ssim_target: int = -1, cur_ssim=None, state=None):
-    """One segment pass (contract of `inter_pass_plain`): the
-    csrc/transform.cu kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+               ssim_target: int = -1, state=None):
+    """One segment pass with its SSIM (contract of `inter_pass_plain`):
+    one launch of csrc/transform.cu's kernel for CUDA tensors (a u8 luma
+    prediction and u8 or int32 chroma predictions of one type, as the
+    inter path makes them), the plain version for CPU tensors."""
     if y.device.type == "cpu":
         return inter_pass_plain(y, u, v, pred_y, pred_u, pred_v, parts, sid,
-                                quant, ssim_target, cur_ssim, state)
+                                quant, ssim_target, state)
     planes, preds = (y, u, v), (pred_y, pred_u, pred_v)
-    _check_pass(planes, preds, parts, cur_ssim, state)
+    _check_pass(planes, preds, parts, state)
     from vp8oclenc_tpu_torch.ops import cuda_build
     H, W = y.shape
     mbc = (H // 16) * (W // 16)
@@ -654,14 +665,15 @@ def inter_pass(y, u, v, pred_y, pred_u, pred_v, parts, sid: int, quant,
                  torch.empty((mbc,), dtype=_I32, device=dev),
                  *(torch.empty(p.shape, dtype=torch.uint8, device=dev)
                    for p in planes),
-                 torch.empty((mbc,), dtype=torch.bool, device=dev))
-    levels_pack, seg_ids, ry, ru, rv, active = state
+                 torch.empty((mbc,), dtype=torch.bool, device=dev),
+                 torch.empty((mbc,), dtype=_I32, device=dev))
+    levels_pack, seg_ids, ry, ru, rv, active, cur_ssim = state
     desc = []
     for t in (*planes, *preds, ry, ru, rv):
         desc += [t.data_ptr(), t.element_size(), t.stride(0)]
     rc = cuda_build.library("transform").vp8_inter_pass(
         (ctypes.c_longlong * len(desc))(*desc), _ptr(parts),
-        None if first else _ptr(cur_ssim), _ptr(levels_pack),
+        _ptr(cur_ssim), _ptr(levels_pack),
         _ptr(seg_ids), _ptr(active), mbc, W // 16, int(sid), int(first),
         int(ssim_target), *(int(q) for q in quant),
         ctypes.c_void_p(torch.cuda.current_stream(y.device).cuda_stream))
@@ -749,20 +761,17 @@ def inter_body(y, u, v, states, ref_valid, quant, ssim_target: int = -1,
         torch.stack([s[2] for s in states]), mvs, ref_sel, H // 2,
         0 if shard is None else PAD_C_FULL)
 
-    # progressive segment requantization LQ -> UQ: each pass codes the MBs
-    # whose SSIM is still at or below the target (every MB in the first,
-    # where nothing is coded yet) and updates the state in place
+    # progressive segment requantization LQ -> UQ: each pass codes and
+    # scores the MBs whose SSIM is still at or below the target (every MB
+    # in the first, where nothing is coded yet) and updates the state,
+    # cur_ssim included, in place
     ssim_on = ssim_target >= 0
-    state = cur_ssim = None
+    state = None
     for i in range(4 if ssim_on else 1):
         sid = LQ_SEGMENT - i
         state = inter_pass(y, u, v, pred_y, pred_u, pred_v, parts, sid,
-                           [q[sid] for q in quant], ssim_target, cur_ssim,
-                           state)
-        levels_pack, seg_ids, ry, ru, rv, active = state
-        new_ssim = mb_ssim_fx(y, ry, u, ru, v, rv)
-        cur_ssim = new_ssim if i == 0 \
-            else torch.where(active, new_ssim, cur_ssim)
+                           [q[sid] for q in quant], ssim_target, state)
+    levels_pack, seg_ids, ry, ru, rv, _, cur_ssim = state
 
     modes = replaced = None
     if ssim_on:

@@ -24,10 +24,12 @@ UNCODED_FX marks MBs that no pass has coded yet.
 
 `mb_ssim_fx` and `mb_ssim_fx_16x16` take uint8 or int32 pixels in
 0..255.  For CUDA tensors they launch csrc/ssim.cu's kernel once a call
-(`mb_ssim_cuda`, which counts its launches), reading every operand through
-its strides: the sums are taken in int32 and the scores in the integer
-arithmetic above, so the result equals the plain version's bit for bit.
-For CPU tensors they run the plain versions, `mb_ssim_fx_plain` and
+(`mb_ssim_cuda`, which counts its launches), reading every operand where
+it lies: as vector rows where its columns are unit stride and aligned,
+else through its strides.  The sums are taken in int32 and the scores in
+the integer arithmetic above (csrc/ssim_fx.cuh, which the inter frame's
+segment pass shares), so the result equals the plain version's bit for
+bit.  For CPU tensors they run the plain versions, `mb_ssim_fx_plain` and
 `mb_ssim_fx_16x16_plain`.
 """
 from __future__ import annotations
@@ -158,8 +160,10 @@ def mb_ssim_cuda(ts, strides, mbw: int, lead) -> torch.Tensor:
     Y, source U, recon U, source V, recon V, uint8 or int32, on one CUDA
     device; strides[i]: ts[i]'s element strides (s_my, s_mx, s_r4, s_r,
     s_c4, s_c), pixel row 4R+r, column 4C+c of MB (my, mx) lying at
-    my*s_my + mx*s_mx + R*s_r4 + r*s_r + C*s_c4 + c*s_c.  Returns the
-    int32 scores of MBs m = my*mbw + mx, shaped `lead`."""
+    my*s_my + mx*s_mx + R*s_r4 + r*s_r + C*s_c4 + c*s_c, less than 2^31
+    elements from the first.  Returns the int32 scores of MBs m = my*mbw
+    + mx, shaped `lead`.  The kernel's constants C1' and C2' are
+    csrc/ssim_fx.cuh's copies of _C1 and _C2."""
     from vp8oclenc_tpu_torch.ops import cuda_build
     dev = ts[0].device
     out = torch.empty(lead, dtype=torch.int32, device=dev)
@@ -170,8 +174,7 @@ def mb_ssim_cuda(ts, strides, mbw: int, lead) -> torch.Tensor:
         desc += [t.data_ptr(), _ESZ[t.dtype], *st]
     rc = cuda_build.library("ssim").vp8_mb_ssim(
         (ctypes.c_longlong * len(desc))(*desc),
-        ctypes.c_void_p(out.data_ptr()), out.numel(), mbw, _C1[256] >> 4,
-        _C2[256], _C1[64], _C2[64],
+        ctypes.c_void_p(out.data_ptr()), out.numel(), mbw,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     cuda_build.check(rc, "vp8_mb_ssim")
     mb_ssim_cuda.launches += 1
