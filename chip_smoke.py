@@ -30,21 +30,25 @@ Phases (any failure exits non-zero before the result line):
      against its plain version at 8160 MBs, at the AQ, HQ and UQ quantizers
      of -qmin 50 -qmax 112, on neighbours cut from a keyframe-coded plane
      and on random sources and neighbours with all-0 and all-255 MBs, and
-     at 1, 7 and 8161 MBs; then the integer per-MB SSIM kernel against its
-     plain version in every operand form its callers pass (whole planes
+     at 1, 7 and 8161 MBs; then the integer per-MB SSIM kernel (which no
+     encoder path launches any more: the passes and the trials score
+     their MBs) against its plain version in every operand form (whole
+     planes
      with an int32 and a u8 recon, per-MB patches, non-contiguous views of
      the planes: its vector path; misaligned planes: its strided path),
      with edge MBs (identical, flat, all 0 against all 255, all 255
      against both), at 1920x1088, 3840x2160 and 16384x128, timed on the
      trials' patches, and at 1, 7 and 8161 MBs; then the transform pass
      kernel (one segment pass of an inter frame with its MBs' SSIM and
-     the cur_ssim merge) and the chroma trial kernel (csrc/transform.cu)
-     against their plain versions at 1920x1088, 3840x2160 and 16384x128,
-     the pass four times at the SSIM segments' quantizers (the later
-     passes masked to about half the MBs), twice at the extremes and
-     twice with a u8 chroma prediction, with +-255 residuals, the trial
-     at the three SSIM quantizer pairs on strided patches; outputs must
-     be bit-identical; kernels are timed
+     the cur_ssim merge) and the chroma trial kernel with its score and
+     merge (csrc/transform.cu) against their plain versions at 1920x1088,
+     3840x2160 and 16384x128, the pass four times at the SSIM segments'
+     quantizers (the later passes masked to about half the MBs), twice at
+     the extremes and twice with a u8 chroma prediction, with +-255
+     residuals, the trial three times chained at the three SSIM quantizer
+     pairs from the pass's scores (about half the MBs active, some
+     winning), with and without a ghost row and with none active; outputs
+     must be bit-identical; kernels are timed
      by the card's clock (`cuda_ms`), plain versions with CUDA events
      around one call (`span_ms`);
   4. all-keyframe path: 10 synthetic 1920x1080 frames through
@@ -64,8 +68,8 @@ Phases (any failure exits non-zero before the result line):
      that get a fresh smooth gradient every frame, constant chroma, at
      -qmin 50 -qmax 112 -SSIM-target 98, gop_size=150: at least 8 inter
      frames, the luma and chroma trial kernels launched 3 times per inter
-     frame, the transform pass 4 times and the SSIM kernel 3 times (the
-     3 trials), some MBs
+     frame, the transform pass 4 times and the SSIM kernel never (the
+     passes and the trials score their MBs), some MBs
      replaced on some frame and never more than a sixth, more than one
      segment in use, no frame done again as a key; an SSIM-on inter frame
      dispatched with stream synchronization an error; the inter
@@ -145,6 +149,8 @@ Phases (any failure exits non-zero before the result line):
      and, for the filter and luma, their card ms at 1080p, UHD and 8K),
      the nvidia-smi line, and as the last line {"ok": true, "device":
      {...}}.
+The SSIM kernel (csrc/ssim.cu) stays in the `kernels` line with its
+checks and times, its launches 0: no encoder path launches it.
 """
 from __future__ import annotations
 
@@ -245,10 +251,13 @@ OPS_C4 = 12
 OPS_CAND_STAGED = 4 * (4 * (OPS_C4 + 4) + 16 + 16 + 7) + 15
 OPS_WINDOW_COLUMNS = 9 * 12 * OPS_C4
 OPS_SIXTAP_INT, OPS_SIXTAP_MAC8 = 4, 6
-# The integer SSIM: five sums a pixel pair (two adds, three multiply-adds);
-# an MB reduces its 15 sums over 5 shuffle rounds (a shuffle and an add
-# each) and scores three planes: two 15-step divisions (~4 a step) and ~40
-# for the variances, terms, sign, product and penalty each
+# The integer SSIM: five sums a pixel pair (two adds, three multiply-adds),
+# which the kernels take four pixels at a time with `dp4a`
+# (`ssimfx::add_sums4`), so the bounds count them as 8-bit multiply-adds
+# (`bound`'s mac8); an MB reduces its 15 sums over 5 shuffle rounds (a
+# shuffle and an add each) and scores three planes: two 15-step divisions
+# (~4 a step) and ~40 for the variances, terms, sign, product and penalty
+# each
 OPS_SSIM_PIXEL = 5
 OPS_SSIM_MB = 15 * 5 * 2 + 3 * (2 * 15 * 4 + 40)
 # The transform pass: a 4x4 block costs ~16 for the residual, ~168 for
@@ -259,6 +268,8 @@ OPS_SSIM_MB = 15 * 5 * 2 + 3 * (2 * 15 * 4 + 40)
 OPS_TRANSFORM_BLOCK = 600
 OPS_Y2 = 400
 OPS_TM_BLOCK = 64
+MAX_SCORE = 3 * 32767          # three planes at a == d: no MB scores more
+LOW_SCORE = -2 * 3 * 32768     # below every score: an active MB wins
 QPEL_HPASS_FILTERED, QPEL_HPASS_COPIED = 4 * 14 * 8, 14 * 8
 
 
@@ -967,7 +978,8 @@ def _ssim_record(what, src, rec):
     planes_ms = cuda_ms(lambda: S.mb_ssim_fx(*planes), reps=20)
     _, pms = _plain(lambda: S.mb_ssim_fx_16x16_plain(*trial))
     nbytes = sum(t.numel() * t.element_size() for t in trial) + 4 * mbc
-    bms, by = bound(nbytes, mbc * (384 * OPS_SSIM_PIXEL + OPS_SSIM_MB))
+    bms, by = bound(nbytes, mbc * OPS_SSIM_MB,
+                    mac8=mbc * 384 * OPS_SSIM_PIXEL)
     log(f"  mb_ssim ({what}, {mbc} MBs): bit-exact in every form, kernel "
         f"{ms:.4f} ms on the trials' patches ({nbytes / 1e6:.2f} MB; "
         f"planes with an int32 recon {planes_ms:.4f} ms), plain {pms:.1f} "
@@ -1049,35 +1061,154 @@ def _pass_same(what, src, pred, parts, cur, quants):
                                  f"by {err}")
 
 
-def _trial_chroma_inputs(src, pred):
-    """The chroma trial's operands as the SSIM controller passes them:
-    `_plane_mb` patches of the u and v source planes, and the frozen
-    neighbours of a recon (here the prediction planes)."""
+def _merge_inputs(src, pred):
+    """The operands of the SSIM controller's trials as it passes them: the
+    luma source patches, the luma trial's frozen neighbours, and the
+    chroma source and frozen recon planes (u, v, ru, rv), the recon here
+    the prediction planes as u8."""
     from vp8oclenc_tpu_torch.ops import intra_replace as IR
-    mbh, mbw = src[1].shape[0] // 8, src[1].shape[1] // 8
-    return ([IR._plane_mb(p, 8) for p in src[1:]],
-            [IR._frozen_chroma_neighbors(p.to(torch.uint8), mbw, mbh)
-             for p in pred[1:]])
+    mbh, mbw = src[0].shape[0] // 16, src[0].shape[1] // 16
+    y_mb = IR._plane_mb(src[0], 16).contiguous()
+    ftop, fleft = IR._frozen_luma_neighbors(pred[0], mbw, mbh)
+    return y_mb, ftop, fleft, (src[1], src[2],
+                               *(p.to(torch.uint8) for p in pred[1:]))
+
+
+def _merge_chain(what, y_mb, lumas, planes, ghosts, cur, target, quants):
+    """Three chained trials of the chroma trial with its score and merge,
+    the kernel's merge state against the plain version's after each,
+    bit-exact, one launch a trial.  Returns the MBs that won."""
+    from vp8oclenc_tpu_torch.ops import intra_replace as IR
+    mbc = y_mb.shape[0]
+    ks, ps = IR.merge_state(mbc, y_mb.device), IR.merge_state(mbc, y_mb.device)
+    kc = pc = cur
+    for sid, luma, q in zip((2, 1, 0), lumas, quants):
+        before = IR.trial_chroma_merge.launches
+        IR.trial_chroma_merge(y_mb, luma, *planes, ghosts, kc, ks, sid,
+                              q[4], q[5], target)
+        if IR.trial_chroma_merge.launches != before + 1:
+            raise AssertionError("trial_chroma_merge did not count its "
+                                 "launch")
+        IR.trial_chroma_merge_plain(y_mb, luma, *planes, ghosts, pc, ps, sid,
+                                    q[4], q[5], target)
+        kc, pc = ks["cur"], ps["cur"]
+        err = max_abs_err([ks[k] for k in ks], [ps[k] for k in ks])
+        if err:
+            raise AssertionError(f"trial_chroma_merge ({what}, trial {sid}): "
+                                 f"kernel differs from its plain version by "
+                                 f"{err}")
+    return int(ks["win"].sum())
+
+
+def _merge_checks(label, y_mb, lumas, planes, cur, target, quants):
+    """The chains of `_merge_chain` without and with a ghost row (the
+    source planes' first rows, standing for a shard's above), with no MB
+    active, and with every MB winning (each cur far below any score, every
+    MB active).  Returns the winners of the first three."""
+    mbc = y_mb.shape[0]
+    won = _merge_chain(label, y_mb, lumas, planes, (None, None), cur, target,
+                       quants)
+    g_won = _merge_chain(label + ", ghost row", y_mb, lumas, planes,
+                         tuple(p[0].contiguous() for p in planes[:2]), cur,
+                         target, quants)
+    none = _merge_chain(label + ", none active", y_mb, lumas, planes,
+                        (None, None), cur, int(cur.min()) - 1, quants)
+    every = _merge_chain(label + ", every MB winning", y_mb, lumas, planes,
+                         (None, None), torch.full_like(cur, LOW_SCORE),
+                         MAX_SCORE, quants)
+    if none or every != mbc:
+        raise AssertionError(f"trial_chroma_merge ({label}): {none} winners "
+                             f"with none active, {every} of {mbc} with "
+                             f"every MB winning")
+    return won, g_won, none
+
+
+def _merge_record(label, y_mb, lumas, planes, cur, target, quants):
+    """`_merge_checks`, and the kernel timed by the card's clock in three
+    forms of the first trial, each with the bound of the MBs that it finds
+    active and that win (`_merge_bound`): from `cur` at `target` (cur_in
+    left as it is, so that every launch does the same work), the plain
+    version beside it by events; every MB active and none winning (each at
+    the highest score there is); every MB active and winning (each far
+    below any score)."""
+    from vp8oclenc_tpu_torch.ops import intra_replace as IR
+    mbc = y_mb.shape[0]
+    won, g_won, _ = _merge_checks(label, y_mb, lumas, planes, cur, target,
+                                  quants)
+    if not 0 < won < mbc or not 0 < g_won < mbc:
+        raise AssertionError(f"trial_chroma_merge ({label}): winners {won}, "
+                             f"{g_won} with a ghost row; some (not all) "
+                             f"expected")
+    args = (y_mb, lumas[0], *planes, (None, None))
+    qs = (2, quants[0][4], quants[0][5])
+    forms = {}
+    for form, c, t in (("from the pass", cur, target),
+                       ("every MB active, none winning",
+                        torch.full_like(cur, MAX_SCORE), MAX_SCORE),
+                       ("every MB winning", torch.full_like(cur, LOW_SCORE),
+                        MAX_SCORE)):
+        st = IR.merge_state(mbc, y_mb.device)
+        ms = cuda_ms(lambda: IR.trial_chroma_merge(*args, c, st, *qs, t),
+                     reps=20)
+        active, wins = int((c <= t).sum()), int(st["win"].sum())
+        bms, by = _merge_bound(mbc, active, wins)
+        forms[form] = {"ms": ms, "bound_ms": bms, "bound_by": by,
+                       "share": bms / ms, "active": active, "winners": wins}
+    if forms["every MB active, none winning"]["winners"] \
+            or forms["every MB winning"]["winners"] != mbc:
+        raise AssertionError(f"trial_chroma_merge ({label}): the timed "
+                             f"forms' winners are not none and all")
+    _, pms = _plain(lambda: IR.trial_chroma_merge_plain(
+        *args, cur, IR.merge_state(mbc, y_mb.device), *qs, target))
+    log(f"  trial_chroma_merge ({label}, {mbc} MBs): bit-exact over 3 "
+        f"chained trials with and without a ghost row, with none active and "
+        f"with every MB winning ({won} and {g_won} MBs won from the pass); "
+        f"plain {pms:.1f} ms; the first trial timed:")
+    for form, f in forms.items():
+        log(f"    {form}: {f['active']} active, {f['winners']} winners, "
+            f"kernel {f['ms']:.4f} ms, bound {f['bound_ms']:.5f} ms "
+            f"({f['bound_by']}), share {f['share']:.4f}")
+    first = forms.pop("from the pass")
+    return {"shape": label, "max_abs_err": 0, "plain_ms": pms, **first,
+            "all_active_no_winner": forms["every MB active, none winning"],
+            "all_winning": forms["every MB winning"]}
+
+
+def _merge_bound(mbc, active, wins):
+    """(bound ms, by) of one chroma trial with its score and merge: each
+    active MB reads its luma source and trial recon, chroma source and the
+    row above and column left of it in the recon (672 bytes), every MB
+    reads and writes its cur (8), and a winner reads the luma trial's
+    levels and modes and writes its trial to the best buffers (1701).  The
+    score's sums are 8-bit multiply-adds (`dp4a`)."""
+    return bound(active * 672 + mbc * 8 + wins * 1701,
+                 active * (8 * (OPS_TRANSFORM_BLOCK + OPS_TM_BLOCK)
+                           + OPS_SSIM_MB),
+                 mac8=active * 384 * OPS_SSIM_PIXEL)
 
 
 def phase_transform(dev):
     """The transform pass kernel with its SSIM (csrc/transform.cu
-    inter_pass_kernel) and the chroma trial kernel against their plain
-    versions, bit-exact:
-    at 1920x1088 (8160 MBs), 3840x2160 (32400) and 16384x128 (8192, 1024
-    MB columns).  The pass four times at the segment quantizers of
-    -qmin 50 -qmax 112 (LQ first, then AQ, HQ, UQ over about half the MBs)
-    and twice at the extremes (4, 4, 8, 8, 4, 4) and (157, 284, 314, 440,
-    132, 284); the trial at the three SSIM quantizer pairs.  Each timed by
-    the card's clock (the first pass, all MBs) with its bound.  Returns
-    ({kernel: the 1080p row}, {kernel: UHD record}, {kernel: wide
+    inter_pass_kernel) and the chroma trial kernel with its score and
+    merge (trial_chroma_merge_kernel) against their plain versions,
+    bit-exact: at 1920x1088 (8160 MBs), 3840x2160 (32400) and 16384x128
+    (8192, 1024 MB columns).  The pass four times at the segment
+    quantizers of -qmin 50 -qmax 112 (LQ first, then AQ, HQ, UQ over about
+    half the MBs) and twice at the extremes (4, 4, 8, 8, 4, 4) and (157,
+    284, 314, 440, 132, 284); the trial at the three SSIM quantizer pairs,
+    chained, from the first pass's scores with the median as the target
+    (about half the MBs active), with and without a ghost row, with no
+    MB active and with every MB winning, there and at 1, 7 and 8161 MBs in
+    one row.  Each timed by the card's clock (the first pass, all MBs;
+    the first trial in `_merge_record`'s three forms) with its bound.
+    Returns ({kernel: the 1080p row}, {kernel: UHD record}, {kernel: wide
     record})."""
     from vp8oclenc_tpu_torch.config import EncoderConfig
     from vp8oclenc_tpu_torch.ops import inter as IN
     from vp8oclenc_tpu_torch.ops import intra_replace as IR
     from vp8oclenc_tpu_torch.pipeline.segments import prepare_segments
 
-    rows = {}
+    rows, q1080 = {}, None
     for label, (mbw, mbh) in (("1920x1088", (W // 16, (H + 15) // 16)),
                               ("3840x2160", (UHD_W // 16, UHD_H // 16)),
                               (f"{WIDEST_W}x{WIDEST_H}",
@@ -1102,7 +1233,8 @@ def phase_transform(dev):
         nbytes = sum(t.numel() * t.element_size()
                      for t in (*src, *pred, parts, *out))
         bms, by = bound(nbytes, mbc * (24 * OPS_TRANSFORM_BLOCK + OPS_Y2
-                                       + 384 * OPS_SSIM_PIXEL + OPS_SSIM_MB))
+                                       + OPS_SSIM_MB),
+                        mac8=mbc * 384 * OPS_SSIM_PIXEL)
         log(f"  inter_pass ({label}, {mbc} MBs): bit-exact over 4 + 2 + 2 "
             f"passes, kernel {ms:.4f} ms, plain {pms:.1f} ms, bound "
             f"{bms:.5f} ms ({by}), share {bms / ms:.4f}")
@@ -1110,33 +1242,27 @@ def phase_transform(dev):
                               "plain_ms": pms, "bound_ms": bms,
                               "bound_by": by, "share": bms / ms}}
 
-        patches, nbs = _trial_chroma_inputs(src, pred)
-        t_ms, t_pms = [], []
-        for q in quants[1:]:
-            q = q[4:]
-            k = IR.trial_chroma(*patches, *nbs, *q)
-            p, pms = _plain(lambda: IR.trial_chroma_plain(*patches, *nbs,
-                                                          *q))
-            err = max_abs_err(k, p)
-            if err:
-                raise AssertionError(f"trial_chroma ({label}, q={q}): "
-                                     f"kernel differs from its plain "
-                                     f"version by {err}")
-            t_ms.append(cuda_ms(lambda: IR.trial_chroma(*patches, *nbs, *q),
-                                reps=20))
-            t_pms.append(pms)
-        nbytes = sum(t.numel() * t.element_size()
-                     for t in (*patches, *nbs[0], *nbs[1], *k))
-        bms, by = bound(nbytes, mbc * 8 * (OPS_TRANSFORM_BLOCK
-                                           + OPS_TM_BLOCK))
-        ms, pms = statistics.median(t_ms), statistics.median(t_pms)
-        log(f"  trial_chroma ({label}, {mbc} MBs, both planes): bit-exact "
-            f"at 3 quantizer pairs, kernel {ms:.4f} ms, plain {pms:.1f} ms, "
-            f"bound {bms:.5f} ms ({by}), share {bms / ms:.4f}")
-        rec["trial_chroma"] = {"shape": label, "max_abs_err": 0, "ms": ms,
-                               "plain_ms": pms, "bound_ms": bms,
-                               "bound_by": by, "share": bms / ms}
+        y_mb, ftop, fleft, planes = _merge_inputs(src, pred)
+        lumas = [IR.trial_luma(y_mb, ftop, fleft, q[0], q[1])
+                 for q in quants[1:]]
+        cur = out[6]
+        rec["trial_chroma_merge"] = _merge_record(
+            label, y_mb, lumas, planes, cur, int(cur.float().median()),
+            quants[1:])
         rows[label] = rec
+        q1080 = q1080 or quants
+    # the trial at the edges of its shapes, at 1080p's quantizers
+    for n in (1, 7, W // 16 * ((H + 15) // 16) + 1):
+        src, pred, parts, _ = _pass_inputs(n, 1, n, dev)
+        cur = IN.inter_pass(*src, *pred, parts, 3, q1080[0])[6]
+        y_mb, ftop, fleft, planes = _merge_inputs(src, pred)
+        lumas = [IR.trial_luma(y_mb, ftop, fleft, q[0], q[1])
+                 for q in q1080[1:]]
+        _merge_checks(f"{n} MBs in a row", y_mb, lumas, planes, cur,
+                      int(cur.float().median()), q1080[1:])
+    log("  trial_chroma_merge at 1, 7 and 8161 MBs in a row: bit-exact over "
+        "3 chained trials with and without a ghost row, with none active "
+        "and with every MB winning")
     first = rows["1920x1088"]
     return ({name: {"max_abs_err": 0, "ms": [r["ms"]],
                     "plain_ms": [r["plain_ms"]], "bound_ms": [r["bound_ms"]],
@@ -1346,9 +1472,20 @@ def _counters():
             "fullpel_search": IN.fullpel_search,
             "qpel_search": IN.qpel_search,
             "trial_luma": IR.trial_luma,
-            "trial_chroma": IR.trial_chroma,
+            "trial_chroma_merge": IR.trial_chroma_merge,
             "inter_pass": IN.inter_pass,
             "mb_ssim": S.mb_ssim_cuda}
+
+
+def _check_launched(launches, where):
+    """Every kernel of `_counters` launched on the path, but the SSIM
+    kernel, which no encoder path launches (the passes and the trials
+    score their MBs), never."""
+    for name, n in launches.items():
+        if name == "mb_ssim" and n:
+            raise AssertionError(f"mb_ssim was launched {n} times on {where}")
+        if name != "mb_ssim" and n <= 0:
+            raise AssertionError(f"{name} was never launched on {where}")
 
 
 def _same_as_cpu(what, cfg, frames, out, depth=3, w=W, h=H):
@@ -1423,18 +1560,15 @@ def phase_ssim_target(dev):
     if st.scene_changes_by_ssim + st.scene_changes_by_replaced \
             + st.scene_changes_by_color:
         raise AssertionError(f"a frame was done again as a key: {st}")
-    # four segment passes (each scoring its MBs) and three trials, each
-    # scored by mb_ssim, an inter frame
-    for name, each in (("trial_luma", 3), ("trial_chroma", 3),
-                       ("inter_pass", 4), ("mb_ssim", 3)):
+    # four segment passes and three trials an inter frame, each scoring
+    # its MBs
+    for name, each in (("trial_luma", 3), ("trial_chroma_merge", 3),
+                       ("inter_pass", 4)):
         if launches[name] != each * n_inter:
             raise AssertionError(f"{name} was launched {launches[name]} "
                                  f"times for {n_inter} inter frames, not "
                                  f"{each} each")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was never launched on the "
-                                 f"SSIM-target path")
+    _check_launched(launches, "the SSIM-target path")
     if max(replaced) <= 0 or max(replaced) > mbc // 6:
         raise AssertionError(f"replaced MBs per frame {replaced}: none, or "
                              f"above a sixth of {mbc}")
@@ -1785,7 +1919,7 @@ def phase_multirank(dev):
     launches, replaced, *_ = _multirank(
         "replacement content, SSIM target 0.98", SSIM_CFG,
         synth_replacement(N_MULTI_SSIM_FRAMES, seed=6), 2, 1, 2, dev)
-    if launches["trial_luma"] <= 0 or launches["trial_chroma"] <= 0 \
+    if launches["trial_luma"] <= 0 or launches["trial_chroma_merge"] <= 0 \
             or replaced <= 0:
         raise AssertionError("the SSIM controller did not run in the ranks")
     for k, v in launches.items():
@@ -1832,10 +1966,7 @@ def phase_quality(dev):
         if got[k] != want[k]:
             raise AssertionError(f"{name}: {k} {got[k]} differs from the "
                                  f"recorded {want[k]}")
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"{k} was never launched on the quality "
-                                 f"stream")
+    _check_launched(launches, "the quality stream")
 
     sw, sh = 96, 80
     small = quality_cuda.synth_sequence(sw, sh, N_SPEC_FRAMES, seed=0)
@@ -2172,15 +2303,12 @@ def phase_uhd_streams(dev):
     if st.scene_changes_by_ssim + st.scene_changes_by_replaced \
             + st.scene_changes_by_color:
         raise AssertionError(f"a frame was done again as a key: {st}")
-    for name in ("trial_luma", "trial_chroma"):
+    for name in ("trial_luma", "trial_chroma_merge"):
         if slaunches[name] != 3 * n_inter:
             raise AssertionError(f"{name} was launched {slaunches[name]} "
                                  f"times for {n_inter} inter frames, not 3 "
                                  f"each")
-    for name, n in slaunches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was never launched on the UHD "
-                                 f"SSIM-target path")
+    _check_launched(slaunches, "the UHD SSIM-target path")
     if max(replaced) <= 0 or max(replaced) > mbc // 6:
         raise AssertionError(f"replaced MBs per frame {replaced}: none, or "
                              f"above a sixth of {mbc}")
@@ -2218,7 +2346,7 @@ GLOBAL_KERNELS = {"luma_wavefront": "luma_rows_kernel",
                   "trial_luma": "trial_luma_kernel",
                   "mb_ssim": "mb_ssim_kernel",
                   "inter_pass": "inter_pass_kernel",
-                  "trial_chroma": "trial_chroma_kernel"}
+                  "trial_chroma_merge": "trial_chroma_merge_kernel"}
 
 
 def global_kernel(name, width):
@@ -2643,7 +2771,7 @@ def main() -> int:
     log(f"[time] {time.monotonic() - t0:.0f} s")
     log("[end-to-end] Encoder.encode_frames, SSIM target")
     ssim_launches = phase_ssim_target(dev)
-    for name in ("trial_luma", "trial_chroma", "mb_ssim"):
+    for name in ("trial_luma", "trial_chroma_merge", "mb_ssim"):
         launches[name] = ssim_launches[name]
     log(f"[time] {time.monotonic() - t0:.0f} s")
     log("[end-to-end] redo-as-key with frames in flight")
@@ -2690,7 +2818,7 @@ def main() -> int:
            "trial_luma": "vp8oclenc_tpu_torch/csrc/intra.cu",
            "mb_ssim": "vp8oclenc_tpu_torch/csrc/ssim.cu",
            "inter_pass": "vp8oclenc_tpu_torch/csrc/transform.cu",
-           "trial_chroma": "vp8oclenc_tpu_torch/csrc/transform.cu"}
+           "trial_chroma_merge": "vp8oclenc_tpu_torch/csrc/transform.cu"}
     replaces = {"luma_wavefront": "vp8oclenc_tpu/ops/pallas_intra.py:309",
                 "chroma_wavefront": "vp8oclenc_tpu/ops/pallas_intra.py:580",
                 "loop_filter": "vp8oclenc_tpu/ops/loopfilter.py:96",
@@ -2701,8 +2829,9 @@ def main() -> int:
                            "kernel)",
                 "inter_pass": "vp8oclenc_tpu/ops/inter.py:922 (seg_pass, "
                               "XLA ops)",
-                "trial_chroma": "vp8oclenc_tpu/ops/intra_replace.py:147 "
-                                "(XLA ops)"}
+                "trial_chroma_merge": "vp8oclenc_tpu/ops/intra_replace.py:"
+                                      "226-243 (the trial loop's body after "
+                                      "the luma trial, XLA ops)"}
     kernels = []
     for name, r in rows.items():
         kernels.append({
@@ -2718,8 +2847,10 @@ def main() -> int:
             kernels[-1]["chain_ms"] = statistics.median(r["chain_ms"])
         if "planes_ms" in r:          # mb_ssim: timed in the trials' form
             kernels[-1].update(form=r["form"], planes_ms=r["planes_ms"])
-        if name in ("mb_ssim", "inter_pass"):   # SSIM-on: 3 and 4 a frame
+        if name in ("mb_ssim", "inter_pass"):   # SSIM-on: 0 and 4 a frame
             kernels[-1]["launches_ssim_target"] = ssim_launches[name]
+        if name == "mb_ssim":         # held and timed here, on no path
+            kernels[-1]["on_encoder_path"] = False
         kernels[-1]["multirank_launches"] = multi[name]
         if name in modes:       # the kernel's row-shard or band mode
             mode = dict(modes[name], launches=multi[

@@ -489,29 +489,88 @@ def test_inter_pass_strided_path_matches_plain(dev, chroma):
     assert 0 < int(ks[5].sum()) < 30                # the mask mixed them
 
 
-@pytest.mark.parametrize("mbc", [1, 7, 8161, 30, 8192])
-@pytest.mark.parametrize("q", [(4, 4), (132, 284), (17, 25)])
-def test_trial_chroma_matches_plain(dev, mbc, q):
-    """Both chroma planes in one launch, bit-exact against the plain
-    version at 1, 7 and 8161 MBs, 96x80's 30 and 16384x128's 8192: U
-    patches as `_plane_mb` views of a plane and a strided top row, V with
-    all-0 and all-255 MBs."""
-    rng = np.random.default_rng(mbc + q[0])
-    rnd = lambda *s: torch.from_numpy(
-        rng.integers(0, 256, s, dtype=np.uint8)).to(dev)
-    u_mb = IR._plane_mb(rnd(8, 8 * mbc), 8)
-    assert mbc == 1 or not u_mb.is_contiguous()
-    v_mb = rnd(mbc, 8, 8)
-    v_mb[:mbc // 3], v_mb[mbc // 3:2 * mbc // 3] = 0, 255
-    un = (rnd(mbc, 16)[:, ::2], rnd(mbc, 8), rnd(2 * mbc)[::2])
-    vn = (rnd(mbc, 8), rnd(mbc, 8), rnd(mbc))
-    before = IR.trial_chroma.launches
-    k = IR.trial_chroma(u_mb, v_mb, un, vn, *q)
-    assert IR.trial_chroma.launches == before + 1
-    p = IR.trial_chroma_plain(u_mb, v_mb, un, vn, *q)
-    torch.cuda.synchronize()
-    assert all(a.dtype == b.dtype == torch.int32 and torch.equal(a, b)
-               for a, b in zip(k, p))
+# (y_dc, y_ac, uv_dc, uv_ac) of the trials AQ, HQ, UQ: the chroma pairs
+# at the extremes and between
+TRIAL_QUANTS = ((60, 90, 132, 284), (20, 40, 17, 25), (7, 9, 4, 4))
+CEILING = 3 * 32767           # the highest three-plane score there is
+
+
+def _merge_same(mbw, mbh, seed, dev, ghost, mode, shift=0):
+    """Three chained trials (luma kernel, then the chroma trial with its
+    score and merge) on random planes, the kernel's merge state against
+    the plain version's after each, bit-exact; one launch a trial.  mode:
+    "all" (every MB active and winning), "none" (inactive MBs and active
+    ones at the ceiling) or "some" (every third MB inactive, the others'
+    scores random below the target).  shift: the chroma planes one column
+    into wider buffers (rows not aligned: the strided path).  Returns the
+    MBs that won."""
+    rng = np.random.default_rng(seed)
+
+    def plane(h, w, k=0):
+        a = torch.from_numpy(rng.integers(0, 256, (h, w + k),
+                                          dtype=np.uint8)).to(dev)
+        return a[:, k:]
+
+    mbc = mbw * mbh
+    y_mb = IR._plane_mb(plane(16 * mbh, 16 * mbw), 16).contiguous()
+    ftop, fleft = IR._frozen_luma_neighbors(plane(16 * mbh, 16 * mbw), mbw,
+                                            mbh)
+    u, v, ru, rv = (plane(8 * mbh, 8 * mbw, shift) for _ in range(4))
+    ghosts = (plane(1, 8 * mbw)[0].contiguous(),
+              plane(1, 8 * mbw)[0].contiguous()) if ghost else (None, None)
+    q3, target = 3 * 32768, 96337
+    if mode == "all":
+        cur = np.full(mbc, -2 * q3)
+    elif mode == "none":
+        cur, target = np.where(np.arange(mbc) % 2, q3, CEILING), CEILING
+    else:
+        cur = np.where(np.arange(mbc) % 3 == 1, q3,
+                       rng.integers(-q3, target, mbc))
+    cur = torch.as_tensor(cur, dtype=torch.int32, device=dev)
+    ks, ps = IR.merge_state(mbc, dev), IR.merge_state(mbc, dev)
+    kc = pc = cur
+    for sid, q in zip((2, 1, 0), TRIAL_QUANTS):
+        luma = IR.trial_luma(y_mb, ftop, fleft, *q[:2])
+        before = IR.trial_chroma_merge.launches
+        IR.trial_chroma_merge(y_mb, luma, u, v, ru, rv, ghosts, kc, ks, sid,
+                              *q[2:], target)
+        assert IR.trial_chroma_merge.launches == before + 1
+        IR.trial_chroma_merge_plain(y_mb, luma, u, v, ru, rv, ghosts, pc, ps,
+                                    sid, *q[2:], target)
+        kc, pc = ks["cur"], ps["cur"]
+        torch.cuda.synchronize()
+        for name in ks:
+            assert ks[name].dtype == ps[name].dtype
+            assert torch.equal(ks[name], ps[name]), (mode, sid, name)
+    win = int(ks["win"].sum())
+    if mode == "all":
+        assert win == mbc
+    elif mode == "none":
+        assert win == 0
+    return win
+
+
+@pytest.mark.parametrize("mbw,mbh", [(1, 1), (7, 1), (8161, 1), (6, 5),
+                                     (1024, 8)])
+@pytest.mark.parametrize("ghost", [False, True])
+def test_trial_chroma_matches_plain(dev, mbw, mbh, ghost):
+    """The chroma trial with its score and merge in one launch a trial,
+    bit-exact against the plain version at 1, 7 and 8161 MBs in a row,
+    96x80 and 16384x128, with and without a ghost row, with all, none and
+    some MBs winning over three chained trials."""
+    for mode in ("all", "none", "some"):
+        won = _merge_same(mbw, mbh, mbw + 3 * mbh, dev, ghost, mode)
+        if mode == "some" and mbw * mbh >= 7:
+            assert 0 < won < mbw * mbh
+
+
+@pytest.mark.parametrize("ghost", [False, True])
+def test_trial_chroma_merge_strided_path_matches_plain(dev, ghost):
+    """The chroma planes one column into wider buffers (96x80 and 7 MBs in
+    a row): rows not aligned for vector loads, the strided path."""
+    for mbw, mbh in ((6, 5), (7, 1)):
+        for mode in ("all", "none", "some"):
+            _merge_same(mbw, mbh, mbw + mbh, dev, ghost, mode, shift=1)
 
 
 def test_transform_kernels_refuse_mixed_devices(dev):
@@ -526,25 +585,31 @@ def test_transform_kernels_refuse_mixed_devices(dev):
     with pytest.raises(ValueError):                 # chroma types differ
         IN.inter_pass(*src, pred[0], pred[1], pred[2].to(torch.uint8),
                       parts, 3, PASS_QUANTS[0])
-    c = torch.zeros((2, 8, 8), dtype=torch.uint8, device=dev)
-    nb = (c[:, 0], c[:, 1], c[:, 0, 0])
-    with pytest.raises(ValueError):
-        IR.trial_chroma(c, c, nb, (nb[0].cpu(), *nb[1:]), 4, 4)
-    with pytest.raises(ValueError):
-        IR.trial_chroma(c, c.to(torch.int32), nb, nb, 4, 4)
+    z = lambda *s_, dt=torch.uint8: torch.zeros(s_, dtype=dt, device=dev)
+    y_mb = z(2, 16, 16)
+    luma = IR.trial_luma(y_mb, z(2, 21), z(2, 16), 4, 4)
+    c, cur, st = z(8, 16), z(2, dt=torch.int32), IR.merge_state(2, dev)
+    for args in ((c, c.cpu(), c, c, (None, None), cur, st),
+                 (c, c.to(torch.int32), c, c, (None, None), cur, st),
+                 (c, c, c, c, (c[0], None), cur, st),
+                 (c, c, c, c, (None, None), cur.cpu(), st),
+                 (c, c, c, c, (None, None), cur, IR.merge_state(2, "cpu")),
+                 (c, c, c[:, :8], c[:, :8], (None, None), cur, st)):
+        with pytest.raises(ValueError):
+            IR.trial_chroma_merge(y_mb, luma, *args, 2, 4, 4, 0)
 
 
 def test_inter_chain_launches_transform_kernels_without_sync(dev):
     """An inter frame's dispatch, with SSIM control off and on, goes
-    through the transform pass kernel (1 and 4 launches), the chroma
-    trial kernel and the SSIM kernel (3 launches each with SSIM on, for
-    the trials; none with it off: the passes score their MBs) with stream
-    synchronization an error."""
+    through the transform pass kernel (1 and 4 launches) and the chroma
+    trial kernel with its score and merge (3 launches with SSIM on, none
+    with it off), and never through the SSIM kernel (the passes and the
+    trials score their MBs), with stream synchronization an error."""
     from vp8oclenc_tpu_torch.pipeline.encoder import _own_padded
     for cfg, frames, passes, trials in (
             (dict(qi_min=8, qi_max=30), _moving(96, 80, 3, seed=6), 1, 0),
             (SSIM_CFG, _replacement(96, 80, 3, seed=7), 4, 3)):
-        counters = (IN.inter_pass, IR.trial_chroma, S.mb_ssim_cuda)
+        counters = (IN.inter_pass, IR.trial_chroma_merge, S.mb_ssim_cuda)
         enc = Encoder(EncoderConfig(**cfg), 96, 80, device=dev)
         list(enc.encode_frames(frames[:2]))      # key, then warm constants
         before = [c.launches for c in counters]
@@ -555,7 +620,7 @@ def test_inter_chain_launches_transform_kernels_without_sync(dev):
             torch.cuda.set_sync_debug_mode("default")
         assert not fd.is_key
         assert [c.launches - b for c, b in zip(counters, before)] == [
-            passes, trials, trials]
+            passes, trials, 0]
         enc.close()
 
 
@@ -586,7 +651,8 @@ SSIM_CFG = dict(qi_min=50, qi_max=112, gop_size=100, ssim_target=0.98,
 def test_ssim_stream_card_equals_cpu(dev):
     w, h = 96, 80
     frames = _replacement(w, h, 5, seed=7)
-    before = IR.trial_luma.launches, S.mb_ssim_cuda.launches
+    before = (IR.trial_luma.launches, S.mb_ssim_cuda.launches,
+              IR.trial_chroma_merge.launches)
     gpu = Encoder(EncoderConfig(**SSIM_CFG), w, h, device=dev)
     a, replaced = [], 0
     for payload in gpu.encode_frames(frames):
@@ -594,9 +660,10 @@ def test_ssim_stream_card_equals_cpu(dev):
         replaced += gpu.last_frame_stats["replaced"]
     gpu.close()
     # 1 keyframe, 4 inter frames, three trials each, no redo; the SSIM
-    # kernel scores the three trials (the passes score their own MBs)
+    # kernel never runs (the passes and the trials score their own MBs)
     assert IR.trial_luma.launches == before[0] + 12
-    assert S.mb_ssim_cuda.launches == before[1] + 12
+    assert IR.trial_chroma_merge.launches == before[2] + 12
+    assert S.mb_ssim_cuda.launches == before[1]
     assert replaced > 0
     cpu = Encoder(EncoderConfig(**SSIM_CFG), w, h, device="cpu")
     b = list(cpu.encode_frames(frames))

@@ -2,7 +2,8 @@
 (ops/inter.py:inter_pass_plain, the plain version of csrc/transform.cu's
 inter_pass_kernel) and the SSIM
 controller's two-plane chroma trial (ops/intra_replace.py:
-trial_chroma_plain, of trial_chroma_kernel) against the JAX package on the
+trial_chroma_plain, a piece of trial_chroma_merge_plain, the plain version
+of trial_chroma_merge_kernel) against the JAX package on the
 same seeded inputs, with exact equality (tolerance 0: every value is an
 integer and both sides compute in int32).
 
@@ -12,7 +13,7 @@ The JAX side is composed as its `seg_pass` composes it
 pass's mask, the MB scores of `ssim_fx.mb_ssim_fx` (xp=jnp) merged into
 cur_ssim, the first pass with every MB at UNCODED_FX.  JAX runs its XLA
 path on the CPU (no Pallas kernel is involved).  On CPU tensors the
-wrappers `inter_pass` and `trial_chroma` take the plain versions."""
+wrapper `inter_pass` takes its plain version."""
 from functools import lru_cache, partial
 
 import numpy as np
@@ -217,7 +218,7 @@ def test_trial_chroma_matches_jax(size, q):
     u_mb, v_mb = (TR._plane_mb(torch.from_numpy(a), 8) for a in (u, v))
     un, vn = (TR._frozen_chroma_neighbors(torch.from_numpy(a), mbw, mbh)
               for a in (ru, rv))
-    got = TR.trial_chroma(u_mb, v_mb, un, vn, *q)
+    got = TR.trial_chroma_plain(u_mb, v_mb, un, vn, *q)
     for k, (src, rec) in enumerate(((u, ru), (v, rv))):
         jnb = JR._frozen_chroma_neighbors(jnp.asarray(rec), mbw, mbh)
         want = JR._trial_chroma(JR._plane_mb(jnp.asarray(src), 8), *jnb, *q)

@@ -36,7 +36,26 @@ MBs) that is `inter_pass`, `ssim_fx.mb_ssim_fx` and, in the later pass,
 a `torch.where`.  `mb_ssim_trial` times the integer SSIM on the SSIM
 controller's trial operands (u8 source patches, u8 luma and int32 chroma
 recon patches) with chip_smoke.py's edge MBs.  `--uhd` adds the three at
-3840x2160 (`*_uhd`).
+3840x2160 (`*_uhd`).  `intra_replace_some` and `intra_replace_none` time
+the SSIM controller as a whole (`ops/intra_replace.intra_replace_device`:
+three luma and three chroma trials with their scores and merges, and the
+suppression) on chip_smoke.py's pass inputs after the first pass, at
+-qmin 50 -qmax 112's segment quantizers: with the pass's median score as
+the target (half the MBs active; a few of them win: the trials rarely
+beat the pass on these inputs) and with a target below every score (no
+MB active, none wins), 5 calls behind each sleep of the card; `--uhd`
+adds both at 3840x2160.  `trial_chroma_merge_half` times the chroma
+trial's kernel with its score and merge alone, the first trial as
+chip_smoke.py times it (the pass's median score as the target: half the
+MBs active, none of them winning on these inputs),
+`trial_chroma_merge_none` with every MB active at the highest score
+there is (none wins) and `trial_chroma_merge_all` with every MB active
+far below any score (every MB wins and stores its trial), each held
+against its plain version (a tree without the kernel has none of
+them); `--uhd` adds the three at 3840x2160.  Every
+case also gets `issue_ms`, the host's time to issue one
+call with the card idle (median of 20, no synchronization inside).  Each
+case's name goes to stderr as it starts.
 `--only` keeps the cases whose names start with one of the given
 prefixes (`--only luma_wavefront,loop_filter`).
 """
@@ -49,6 +68,7 @@ import json
 import os
 import statistics
 import sys
+import time
 
 import numpy as np
 import torch
@@ -80,6 +100,10 @@ def main() -> int:
     import vp8oclenc_tpu_torch
     if not os.path.abspath(vp8oclenc_tpu_torch.__file__).startswith(root):
         raise AssertionError("the package did not come from --root")
+    # every library built first: a build inside a timed call's warm-up
+    # would size cuda_ms's sleep of the card from the build's minutes
+    from vp8oclenc_tpu_torch.ops import cuda_build
+    cuda_build.build_all()
 
     dev = torch.device("cuda", 0)
     f = pad_frame(synth_frames(1, seed=7)[0])
@@ -155,21 +179,28 @@ def main() -> int:
             lambda q=q: IR.trial_luma(y_mb, ftop, fleft, *q),
             lambda q=q: IR.trial_luma_plain(y_mb, ftop, fleft, *q))
     cases.update(_ssim_cases(dev, y.shape[1] // 16, y.shape[0] // 16, ""))
+    cases.update(_replace_cases(dev, y.shape[1] // 16, y.shape[0] // 16, ""))
     if opts.uhd:
         cases.update(_uhd_cases(dev))
         from chip_smoke import UHD_H, UHD_W
         cases.update(_ssim_cases(dev, UHD_W // 16, UHD_H // 16, "_uhd"))
+        cases.update(_replace_cases(dev, UHD_W // 16, UHD_H // 16, "_uhd"))
     if opts.only:
         keep = tuple(opts.only.split(","))
         cases = {k: v for k, v in cases.items() if k.startswith(keep)}
     out = {"root": root, "card": nvidia_smi_line(), "ms": {}}
     for name, (kfn, pfn) in cases.items():
+        print(f"time_kernels_cuda: {name}", file=sys.stderr, flush=True)
         err = 0 if pfn is None else max_abs_err(tup(kfn()), tup(pfn()))
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version by {err}")
-        ms = [cuda_ms(kfn, reps=20) for _ in range(3)]
-        out["ms"][name] = {"min": min(ms), "median": statistics.median(ms)}
+        # a call of the controller issues tens to a hundred launches: 20
+        # of them queued behind the card's sleep overflow its launch queue
+        reps = 5 if name.startswith("intra_replace") else 20
+        ms = [cuda_ms(kfn, reps=reps) for _ in range(3)]
+        out["ms"][name] = {"min": min(ms), "median": statistics.median(ms),
+                           "issue_ms": _issue_ms(kfn)}
     if all(f"fullpel_search_level{lvl}" in out["ms"] for lvl in levels):
         out["ms"]["fullpel_search_5_levels"] = {
             k: sum(out["ms"][f"fullpel_search_level{lvl}"][k]
@@ -225,6 +256,71 @@ def _ssim_cases(dev, mbw, mbh, suffix):
         "mb_ssim_trial" + suffix: (
             lambda: S.mb_ssim_fx_16x16(*trial),
             lambda: S.mb_ssim_fx_16x16_plain(*trial))}
+
+
+def _issue_ms(fn, reps=20):
+    """The host's time (ms) to issue one call of fn with the card idle:
+    the median of reps calls, each after a synchronization."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _replace_cases(dev, mbw, mbh, suffix):
+    """{name: (call, plain or None)}: `intra_replace_device` on the state
+    of a first segment pass at mbw x mbh MBs, with the pass's median score
+    as the target (some MBs win) and with one below every score (none is
+    active); both trees keep its signature, and it has no plain version of
+    its own (its kernels are held against theirs elsewhere).  For a tree
+    with it, the chroma trial's kernel with its score and merge alone (the
+    first trial's quantizers) against its plain version: the median as
+    the target, and every MB active at the highest score."""
+    from chip_smoke import SSIM_CFG, _pass_inputs
+    from vp8oclenc_tpu_torch.config import EncoderConfig
+    from vp8oclenc_tpu_torch.ops import inter as IN
+    from vp8oclenc_tpu_torch.ops import intra_replace as IR
+    from vp8oclenc_tpu_torch.pipeline.segments import prepare_segments
+    src, pred, parts, _ = _pass_inputs(mbw, mbh, mbw + mbh, dev)
+    seg = prepare_segments(EncoderConfig(**SSIM_CFG), src[0].cpu().numpy(),
+                           False, False)
+    quant = [[int(x) for x in a] for a in (seg.y_dc_q, seg.y_ac_q,
+                                            seg.y2_dc_q, seg.y2_ac_q,
+                                            seg.uv_dc_q, seg.uv_ac_q)]
+    state = IN.inter_pass(*src, *pred, parts, 3, [q[3] for q in quant])
+    ry, ru, rv, cur = *state[2:5], state[6]
+    y_dc, y_ac, _, _, uv_dc, uv_ac = quant
+
+    def run(target):
+        return IR.intra_replace_device(*src, ry, ru, rv, cur, y_dc, y_ac,
+                                       uv_dc, uv_ac, target, mbw, mbh)
+
+    some, none = int(cur.float().median()), int(cur.min()) - 1
+    cases = {"intra_replace_some" + suffix: (lambda: run(some), None),
+             "intra_replace_none" + suffix: (lambda: run(none), None)}
+    if not hasattr(IR, "trial_chroma_merge"):
+        return cases
+    from chip_smoke import LOW_SCORE, MAX_SCORE, _merge_inputs
+    y_mb, ftop, fleft, planes = _merge_inputs(src, pred)
+    luma = IR.trial_luma(y_mb, ftop, fleft, y_dc[2], y_ac[2])
+    top = torch.full_like(cur, MAX_SCORE)
+    low = torch.full_like(cur, LOW_SCORE)
+
+    def merge(fn, c, target):
+        st = IR.merge_state(mbw * mbh, dev)
+        return lambda: fn(y_mb, luma, *planes, (None, None), c, st, 2,
+                          uv_dc[2], uv_ac[2], target) or list(st.values())
+
+    for name, c, target in (("half", cur, some), ("none", top, MAX_SCORE),
+                            ("all", low, MAX_SCORE)):
+        cases[f"trial_chroma_merge_{name}{suffix}"] = (
+            merge(IR.trial_chroma_merge, c, target),
+            merge(IR.trial_chroma_merge_plain, c, target))
+    return cases
 
 
 def _uhd_cases(dev):

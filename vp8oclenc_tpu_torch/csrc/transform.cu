@@ -10,16 +10,27 @@
 //     XLA fuses into the frame's program.  Contract:
 //     ops/inter.py:inter_pass_plain.  In plain PyTorch one pass is ~600
 //     launches and its SSIM ~780 more; here it is one.
-//   * trial_chroma_kernel: the TM_PRED chroma trial of both chroma planes,
-//     `_trial_chroma` (vp8oclenc_tpu/ops/intra_replace.py:147).  Contract:
-//     ops/intra_replace.py:trial_chroma_plain.  ~220 launches become one.
+//   * trial_chroma_merge_kernel: the second half of one trial of the SSIM
+//     controller's loop (vp8oclenc_tpu/ops/intra_replace.py:226-243): the
+//     frozen chroma neighbours (`_frozen_chroma_neighbors`, :84-101, with
+//     the shard's ghost row, :183-191), the TM_PRED trial of both chroma
+//     planes (`_trial_chroma`, :147), the MB's three-plane score against
+//     the luma trial's recon (`mb_ssim_fx_16x16`) and the merge of a
+//     strictly better score into cur, win and the best-trial buffers.
+//     Contract: ops/intra_replace.py:trial_chroma_merge_plain.  In plain
+//     PyTorch a trial is ~20 launches besides the neighbour builds; here
+//     it is one.
 //
 // What bounds them: bytes.  A 1080p pass reads the u8 source and the
 // prediction planes once, cur_ssim and the partitionings, and writes the
 // int16 levels (800 bytes an MB), the u8 recon, cur_ssim, the segment ids
 // and `active`: ~19 MB, ~5.7 us at 3.35 TB/s.  The arithmetic, ~500
 // integer operations a 4x4 block and ~150 an MB for the score, is about
-// half of that at the card's integer rate.
+// half of that at the card's integer rate.  A trial reads ~680 bytes an
+// active MB (luma source and trial recon 512, chroma source 128, the
+// neighbours 34, cur) and a winner moves ~1.7 KB more (the luma trial's
+// levels, modes and recon copied, its own levels and recon written): 5.6
+// to 19.4 MB at 1080p, 1.7 to 5.8 us.
 //
 // Design:
 //   * inter_pass_kernel: one warp an MB, kPassWarps MBs of consecutive
@@ -49,24 +60,39 @@
 //     (the luma prediction is u8), and the vector path, chosen by the
 //     launcher; 64 registers on the vector path (4 CTAs, half the SM's
 //     threads), 80 on the strided one.
-//   * trial_chroma_kernel: one thread a 4x4 block, 8 a MB (U then V), no
-//     communication.
+//   * trial_chroma_merge_kernel: the same warp and row lanes for the
+//     chroma half; an MB whose cur is above the target returns after
+//     passing cur on.  The chroma row lanes build their TM_PRED row from
+//     the frozen recon planes (the row above is one 8-byte load every row
+//     lane of a plane makes, the ghost row's at a shard's top, 127 above
+//     the frame; the left pixel and the corner single bytes, 129 left of
+//     the frame); lanes 0-15 take their luma row's sums from the source
+//     and the luma trial's recon.  Then all 32 lanes transform the 8
+//     blocks, lane 4b + i taking row i and then column i of block b: each
+//     transform's first pass on its rows or columns, the second after a
+//     transpose through shared memory, the zigzag levels kept there (4
+//     lanes a block, where a lane a block would leave 24 lanes idle).
+//     The score is `warp_mb_score` of the recon in registers;
+//     nothing is stored before it is known, and only a winner's lanes
+//     store (the luma trial's levels, modes and recon rows, the chroma
+//     levels and recon rows).  The vector path is the launcher's choice,
+//     as for the pass.
 //   * int32 throughout with the plain version's semantics: arithmetic
-//     right shifts, q >> 1 rounding, division of non-negative values only;
-//     products that could leave int32 wrap as torch's do (`mulw`).
-//   * The pass addresses planes with 32-bit offsets (the launcher refuses
-//     a plane whose last pixel lies 2^31 elements or more from its first,
-//     and more than 2^31 level elements); the trial reads its patches
-//     through per-MB, row and column strides.
+//     right shifts, q >> 1 rounding, division of non-negative values only
+//     (by multipliers fixed for the launch, `div_of`); products that could
+//     leave int32 wrap as torch's do (`mulw`).
+//   * Planes are addressed with 32-bit offsets: the launchers refuse a
+//     plane whose last pixel lies 2^31 elements or more from its first,
+//     and more than 2^31 level or patch elements.
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_runtime.h>
 
 #include "ssim_fx.cuh"
 
 namespace {
 
-constexpr int kPassWarps = 8;        // MBs a CTA of inter_pass_kernel
-constexpr int kTrialThreads = 128;   // threads a CTA of trial_chroma_kernel
+constexpr int kPassWarps = 8;        // MBs a CTA of both kernels
 constexpr int kAre16x16 = 0;         // tables.ARE16X16
 constexpr int kSin = 35468;          // tables.SINPI8SQRT2
 constexpr int kCos = 20091;          // tables.COSPI8SQRT2MINUS1
@@ -95,27 +121,38 @@ __device__ __forceinline__ int mulw(int a, int b) {
   return (int)((unsigned)a * (unsigned)b);
 }
 
+// ops/transforms.py:fdct4x4's first pass, of one row p into t, and its
+// second, of one column t (rows 0-3) into x (rows 0-3)
+__device__ __forceinline__ void fdct_row(const int* p, int* t) {
+  const int a1 = (p[0] + p[3]) * 8, b1 = (p[1] + p[2]) * 8;
+  const int c1 = (p[1] - p[2]) * 8, d1 = (p[0] - p[3]) * 8;
+  t[0] = a1 + b1;
+  t[1] = (c1 * 2217 + d1 * 5352 + 14500) >> 12;
+  t[2] = a1 - b1;
+  t[3] = (d1 * 2217 - c1 * 5352 + 7500) >> 12;
+}
+
+__device__ __forceinline__ void fdct_col(const int* t, int* x) {
+  const int a1 = t[0] + t[3], b1 = t[1] + t[2];
+  const int c1 = t[1] - t[2], d1 = t[0] - t[3];
+  x[0] = (a1 + b1 + 7) >> 4;
+  x[1] = ((c1 * 2217 + d1 * 5352 + 12000) >> 16) + (d1 != 0 ? 1 : 0);
+  x[2] = (a1 - b1 + 7) >> 4;
+  x[3] = (d1 * 2217 - c1 * 5352 + 51000) >> 16;
+}
+
 // ops/transforms.py:fdct4x4 of x (raster 4x4), in place
 __device__ __forceinline__ void fdct4x4(int* x) {
   int t[16];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int* p = x + 4 * r;
-    const int a1 = (p[0] + p[3]) * 8, b1 = (p[1] + p[2]) * 8;
-    const int c1 = (p[1] - p[2]) * 8, d1 = (p[0] - p[3]) * 8;
-    t[4 * r + 0] = a1 + b1;
-    t[4 * r + 1] = (c1 * 2217 + d1 * 5352 + 14500) >> 12;
-    t[4 * r + 2] = a1 - b1;
-    t[4 * r + 3] = (d1 * 2217 - c1 * 5352 + 7500) >> 12;
-  }
+  for (int r = 0; r < 4; ++r) fdct_row(x + 4 * r, t + 4 * r);
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    const int a1 = t[c] + t[12 + c], b1 = t[4 + c] + t[8 + c];
-    const int c1 = t[4 + c] - t[8 + c], d1 = t[c] - t[12 + c];
-    x[c] = (a1 + b1 + 7) >> 4;
-    x[4 + c] = ((c1 * 2217 + d1 * 5352 + 12000) >> 16) + (d1 != 0 ? 1 : 0);
-    x[8 + c] = (a1 - b1 + 7) >> 4;
-    x[12 + c] = (d1 * 2217 - c1 * 5352 + 51000) >> 16;
+    const int col[4] = {t[c], t[4 + c], t[8 + c], t[12 + c]};
+    int o[4];
+    fdct_col(col, o);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[4 * j + c] = o[j];
   }
 }
 
@@ -125,30 +162,41 @@ __device__ __forceinline__ void idct_odd(int i1, int i3, int& c1, int& d1) {
   d1 = (i1 + (mulw(i1, kCos) >> 16)) + (mulw(i3, kSin) >> 16);
 }
 
+// ops/transforms.py:idct4x4's first pass, of one column x (rows 0-3) into
+// t (rows 0-3), and its second, of one row t into x
+__device__ __forceinline__ void idct_col(const int* x, int* t) {
+  const int a1 = x[0] + x[2], b1 = x[0] - x[2];
+  int c1, d1;
+  idct_odd(x[1], x[3], c1, d1);
+  t[0] = a1 + d1;
+  t[1] = b1 + c1;
+  t[2] = b1 - c1;
+  t[3] = a1 - d1;
+}
+
+__device__ __forceinline__ void idct_row(const int* t, int* x) {
+  const int a1 = t[0] + t[2], b1 = t[0] - t[2];
+  int c1, d1;
+  idct_odd(t[1], t[3], c1, d1);
+  x[0] = (a1 + d1 + 4) >> 3;
+  x[1] = (b1 + c1 + 4) >> 3;
+  x[2] = (b1 - c1 + 4) >> 3;
+  x[3] = (a1 - d1 + 4) >> 3;
+}
+
 // ops/transforms.py:idct4x4 of x (raster 4x4), in place
 __device__ __forceinline__ void idct4x4(int* x) {
   int t[16];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    const int a1 = x[c] + x[8 + c], b1 = x[c] - x[8 + c];
-    int c1, d1;
-    idct_odd(x[4 + c], x[12 + c], c1, d1);
-    t[c] = a1 + d1;
-    t[4 + c] = b1 + c1;
-    t[8 + c] = b1 - c1;
-    t[12 + c] = a1 - d1;
+    const int col[4] = {x[c], x[4 + c], x[8 + c], x[12 + c]};
+    int o[4];
+    idct_col(col, o);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) t[4 * j + c] = o[j];
   }
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int* p = t + 4 * r;
-    const int a1 = p[0] + p[2], b1 = p[0] - p[2];
-    int c1, d1;
-    idct_odd(p[1], p[3], c1, d1);
-    x[4 * r + 0] = (a1 + d1 + 4) >> 3;
-    x[4 * r + 1] = (b1 + c1 + 4) >> 3;
-    x[4 * r + 2] = (b1 - c1 + 4) >> 3;
-    x[4 * r + 3] = (a1 - d1 + 4) >> 3;
-  }
+  for (int r = 0; r < 4; ++r) idct_row(t + 4 * r, x + 4 * r);
 }
 
 // ops/transforms.py:fwht4x4 of x (raster 4x4), in place
@@ -198,14 +246,6 @@ __device__ __forceinline__ void iwht4x4(int* x) {
   }
 }
 
-// ops/transforms.py:quant4x4 of one coefficient: q/2 rounding away from
-// zero, then truncation; only non-negative values are divided
-__device__ __forceinline__ int quant(int c, int q) {
-  const int h = q >> 1;
-  const int a = c + (c < 0 ? -h : h);
-  return a < 0 ? -((-a) / q) : a / q;
-}
-
 // Division of an unsigned 32-bit n by a quantizer fixed for the launch,
 // exact for every n: Granlund and Montgomery's round-up method (1994,
 // fig. 4.1) with multiplier m and shifts sh1 = min(l, 1), sh2 = max(l - 1,
@@ -228,23 +268,13 @@ __device__ __forceinline__ unsigned divu(unsigned n, Div d) {
   return (t + ((n - t) >> d.sh1)) >> d.sh2;
 }
 
-// quant(c, q) with q's Div
+// ops/transforms.py:quant4x4 of one coefficient at quantizer q: q/2
+// rounding away from zero, then truncation; only non-negative values are
+// divided, by q's Div
 __device__ __forceinline__ int quant_div(int c, int q, Div d) {
   const int h = q >> 1;
   const int a = c + (c < 0 ? -h : h);
   return a < 0 ? -(int)divu(0u - (unsigned)a, d) : (int)divu((unsigned)a, d);
-}
-
-// levels and dequantized coefficients (both raster) of coefficients c at
-// (dc_q, ac_q); dq may be c itself
-__device__ __forceinline__ void quant_block(const int* c, int dc_q, int ac_q,
-                                            int* lev, int* dq) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int q = i == 0 ? dc_q : ac_q;
-    lev[i] = quant(c[i], q);
-    dq[i] = lev[i] * q;
-  }
 }
 
 __device__ __forceinline__ int clamp255(int v) {
@@ -294,6 +324,12 @@ __device__ __forceinline__ void load16(const int* s, int* x) {
 // 0xfeb7adc963258410 (zig(i) above, one hex digit each, last first)
 __device__ __forceinline__ int zig_rt(int i) {
   return (int)((0xfeb7adc963258410ull >> (4 * i)) & 15);
+}
+
+// The zigzag position of raster index n: nibble n of 0xfea9db83c7426510,
+// the inverse of zig_rt
+__device__ __forceinline__ int unzig_rt(int n) {
+  return (int)((0xfea9db83c7426510ull >> (4 * n)) & 15);
 }
 
 using ssimfx::px;
@@ -350,12 +386,12 @@ __device__ __forceinline__ void row_in(const uint8_t* src, const void* pred,
 }
 
 // A row lane's second half: the reconstructed residual row from shared
-// memory plus the prediction, clamped, stored as the recon row, and the
-// row's five SSIM sums against the source added to s.
-template <int kE, int kN, bool kVec>
-__device__ __forceinline__ void row_out(const int* srow, const unsigned* sw,
-                                        const int* pr, uint8_t* rec, int* s) {
-  unsigned rw[4];
+// memory plus the prediction, clamped, as packed bytes (rw), and the row's
+// five SSIM sums against the source added to s.
+template <int kE, int kN>
+__device__ __forceinline__ void row_recon(const int* srow, const unsigned* sw,
+                                          const int* pr, unsigned* rw,
+                                          int* s) {
 #pragma unroll
   for (int i = 0; i < kN / 4; ++i) {
     const int4 t = reinterpret_cast<const int4*>(srow)[i];
@@ -367,15 +403,30 @@ __device__ __forceinline__ void row_out(const int* srow, const unsigned* sw,
     rw[i] = w;
     ssimfx::add_sums4(sw[i], w, s);
   }
+}
+
+// kN u8 pixels packed in w to p: one vector store, or bytes where the row
+// is not aligned for it
+template <int kN, bool kVec>
+__device__ __forceinline__ void store_u8(uint8_t* p, const unsigned* w) {
   if constexpr (kVec && kN == 16) {
-    *reinterpret_cast<uint4*>(rec) = make_uint4(rw[0], rw[1], rw[2], rw[3]);
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
   } else if constexpr (kVec) {
-    *reinterpret_cast<uint2*>(rec) = make_uint2(rw[0], rw[1]);
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
   } else {
 #pragma unroll
     for (int j = 0; j < kN; ++j)
-      rec[j] = (uint8_t)(rw[j >> 2] >> (8 * (j & 3)));
+      p[j] = (uint8_t)(w[j >> 2] >> (8 * (j & 3)));
   }
+}
+
+// row_recon, then the recon row stored to rec
+template <int kE, int kN, bool kVec>
+__device__ __forceinline__ void row_out(const int* srow, const unsigned* sw,
+                                        const int* pr, uint8_t* rec, int* s) {
+  unsigned rw[4];
+  row_recon<kE, kN>(srow, sw, pr, rw, s);
+  store_u8<kN, kVec>(rec, rw);
 }
 
 template <class T>
@@ -520,55 +571,160 @@ cudaError_t launch_pass(const PassArgs& a, bool vec, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-struct TrialArgs {
-  const uint8_t* src[2];      // (mbc, 8, 8) patches of U and V
-  const uint8_t* top[2];      // (mbc, 8)
-  const uint8_t* left[2];     // (mbc, 8)
-  const uint8_t* tl[2];       // (mbc,)
-  long long src_s[2][3], top_s[2][2], left_s[2][2], tl_s[2];
-  int* levels;                // (2, mbc, 4, 16) zigzag
-  int* rec;                   // (2, mbc, 8, 8)
-  int mbc, dc_q, ac_q;
+struct MergeArgs {
+  const uint8_t* y_src;       // (mbc, 16, 16) luma source patches
+  const uint8_t* y_rec;       // (mbc, 16, 16) the luma trial's recon
+  const int16_t* y_lev;       // (mbc, 16, 16) its zigzag levels
+  const int8_t* y_modes;      // (mbc, 16) its modes
+  const uint8_t* src[2];      // u, v source planes
+  const uint8_t* rec[2];      // the frozen u, v recon planes
+  const uint8_t* ghost[2];    // the row above each, null at the frame top
+  int src_rs[2], rec_rs[2];   // row strides, elements
+  const int* cur_in;          // (mbc,): read first
+  int* cur_out;               // (mbc,): written; may be cur_in
+  uint8_t* win;               // the merge state, (mbc, ...) each
+  int* best_sid;
+  int8_t* best_modes;
+  int16_t* best_lev_y;
+  int16_t* best_lev_c[2];
+  uint8_t* best_rec_y;
+  uint8_t* best_rec_c[2];
+  int mbc, mbw, sid, ssim_target, dc_q, ac_q;
+  Div dc_d, ac_d;
 };
 
-__global__ void __launch_bounds__(kTrialThreads)
-    trial_chroma_kernel(const TrialArgs a) {
-  const long long t = (long long)blockIdx.x * kTrialThreads + threadIdx.x;
-  if (t >= 8LL * a.mbc) return;
-  const int m = (int)(t >> 3), k = (int)(t & 7);
-  const int p = k >> 2, b = k & 3, br = b >> 1, bc = b & 1;
-  const int tl = a.tl[p][m * a.tl_s[p]];
-  int pred[16], c[16];
+// The shared memory of a warp of trial_chroma_merge_kernel: the chroma
+// residual rows at inter_pass_kernel's relative offsets (U, then V 8
+// words past U's end), so that the same accesses meet in no bank; a
+// transpose buffer of the 8 blocks, kTStride words apart, so that the 32
+// lanes' column reads (lane 4b + i: words 20b + 4j + i) meet in no bank;
+// the 8 blocks' zigzag levels (int16).
+constexpr int kMergeV0 = kV0 - kU0;                    // 104
+constexpr int kMergeT = kMergeV0 + 8 * kChromaStride;  // 200
+constexpr int kTStride = 20;
+constexpr int kMergeL = kMergeT + 8 * kTStride;        // 360
+constexpr int kMergeWords = kMergeL + 64;
+
+// kVec: the chroma planes' rows (and the ghost rows) aligned for 8-byte
+// vector access
+template <bool kVec>
+__global__ void __launch_bounds__(kPassWarps * 32)
+    trial_chroma_merge_kernel(const MergeArgs a) {
+  __shared__ __align__(16) int s_all[kPassWarps][kMergeWords];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int m = blockIdx.x * kPassWarps + wid;
+  if (m >= a.mbc) return;                               // the whole warp
+  const int cur = a.cur_in[m];
+  if (cur > a.ssim_target) {                            // inactive MB
+    if (lane == 0) a.cur_out[m] = cur;
+    return;
+  }
+  int* sm = s_all[wid];
+  const int my = m / a.mbw, mx = m - my * a.mbw;
+  const bool luma = lane < 16;
+  const int p = (lane >> 3) & 1, r = lane & 7;          // chroma lanes
+  int s[5] = {0, 0, 0, 0, 0};
+  unsigned sw[4], rw[4];     // source row; recon row (both packed)
+  int pr[2];                 // chroma prediction row, packed bytes
+  int* srow = sm + (p ? kMergeV0 : 0) + r * kChromaStride;
+  if (luma) {                // the luma trial's row against the source
+    load_u8<16, true>(a.y_src + m * 256 + lane * 16, sw);
+    load_u8<16, true>(a.y_rec + m * 256 + lane * 16, rw);
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int L = a.left[p][m * a.left_s[p][0] + (br * 4 + r) * a.left_s[p][1]];
+    for (int i = 0; i < 4; ++i) ssimfx::add_sums4(sw[i], rw[i], s);
+  } else {                   // TM_PRED row r of plane p, its residual
+    const uint8_t* rec = a.rec[p];
+    const int rs = a.rec_rs[p], col = 8 * mx, row = 8 * my + r;
+    load_u8<8, kVec>(a.src[p] + row * a.src_rs[p] + col, sw);
+    // the row above the MB: the plane's, the ghost row's, or 127
+    const uint8_t* above = my ? rec + (row - r - 1) * rs : a.ghost[p];
+    unsigned at[2] = {0x7f7f7f7fu, 0x7f7f7f7fu};
+    if (above) load_u8<8, kVec>(above + col, at);
+    const int L = mx ? rec[row * rs + col - 1] : 129;
+    const int P = !mx ? (my || above ? 129 : 127)
+                      : above ? above[col - 1] : 127;
+    int res[8];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      unsigned w = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int v = clamp255((int)((at[i] >> (8 * j)) & 255u) + L - P);
+        w |= (unsigned)v << (8 * j);
+        res[4 * i + j] = (int)((sw[i] >> (8 * j)) & 255u) - v;
+      }
+      pr[i] = (int)w;
+    }
+    reinterpret_cast<int4*>(srow)[0] = make_int4(res[0], res[1], res[2],
+                                                 res[3]);
+    reinterpret_cast<int4*>(srow)[1] = make_int4(res[4], res[5], res[6],
+                                                 res[7]);
+  }
+  __syncwarp();
+
+  // blocks: lane 4b + i takes row i, then column i, of chroma block b
+  // (U 0-3, V 4-7): each transform's first pass on rows or columns, the
+  // second after a transpose through shared memory; the zigzag levels
+  // wait in shared memory for the score
+  {
+    const int b = lane >> 2, i = lane & 3, k = b & 3;
+    int* res = sm + (b < 4 ? 0 : kMergeV0) +
+               ((k >> 1) * 4 + i) * kChromaStride + (k & 1) * 4;
+    int* tb = sm + kMergeT + b * kTStride;
+    int16_t* lv = reinterpret_cast<int16_t*>(sm + kMergeL) + 16 * b;
+    int x[4], t[4];
+    const int4 r = reinterpret_cast<const int4*>(res)[0];
+    x[0] = r.x; x[1] = r.y; x[2] = r.z; x[3] = r.w;
+    fdct_row(x, t);
+    reinterpret_cast<int4*>(tb)[i] = make_int4(t[0], t[1], t[2], t[3]);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) t[j] = tb[4 * j + i];
+    fdct_col(t, x);                // coefficients 4j + i
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int A = a.top[p][m * a.top_s[p][0] + (bc * 4 + j) * a.top_s[p][1]];
-      const int pr = clamp255(A + L - tl);
-      const int s = a.src[p][m * a.src_s[p][0] + (br * 4 + r) * a.src_s[p][1] +
-                             (bc * 4 + j) * a.src_s[p][2]];
-      pred[4 * r + j] = pr;
-      c[4 * r + j] = s - pr;
+      const bool dc = j == 0 && i == 0;
+      const int q = dc ? a.dc_q : a.ac_q;
+      const int l = quant_div(x[j], q, dc ? a.dc_d : a.ac_d);
+      lv[unzig_rt(4 * j + i)] = (int16_t)l;
+      x[j] = l * q;
     }
+    idct_col(x, t);
+    __syncwarp();                  // every column read before the rewrite
+#pragma unroll
+    for (int j = 0; j < 4; ++j) tb[4 * j + i] = t[j];
+    __syncwarp();
+    const int4 u = reinterpret_cast<const int4*>(tb)[i];
+    t[0] = u.x; t[1] = u.y; t[2] = u.z; t[3] = u.w;
+    idct_row(t, x);
+    reinterpret_cast<int4*>(res)[0] = make_int4(x[0], x[1], x[2], x[3]);
   }
-  fdct4x4(c);
-  int lev[16], dq[16];
-  quant_block(c, a.dc_q, a.ac_q, lev, dq);
-  idct4x4(dq);
-  int* lz = a.levels + (((long long)p * a.mbc + m) * 4 + b) * 16;
-#pragma unroll
-  for (int i = 0; i < 16; i += 4)
-    *reinterpret_cast<int4*>(lz + i) = make_int4(
-        lev[zig(i)], lev[zig(i + 1)], lev[zig(i + 2)], lev[zig(i + 3)]);
-  int* rc = a.rec + ((long long)p * a.mbc + m) * 64 + br * 32 + bc * 4;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-    *reinterpret_cast<int4*>(rc + r * 8) = make_int4(
-        clamp255(pred[4 * r] + dq[4 * r]),
-        clamp255(pred[4 * r + 1] + dq[4 * r + 1]),
-        clamp255(pred[4 * r + 2] + dq[4 * r + 2]),
-        clamp255(pred[4 * r + 3] + dq[4 * r + 3]));
+  __syncwarp();
+
+  // chroma rows again: the recon row and its sums; the MB's score
+  if (!luma) row_recon<1, 8>(srow, sw, pr, rw, s);
+  const int test = __shfl_sync(0xffffffffu, ssimfx::warp_mb_score(s, lane),
+                               0);
+  const bool better = test > cur;       // strictly: an earlier winner stays
+  if (lane == 0) a.cur_out[m] = better ? test : cur;
+  if (!better) return;                  // the whole warp
+
+  // the winner's trial into the best buffers
+  const int4* lev = reinterpret_cast<const int4*>(a.y_lev + m * 256);
+  reinterpret_cast<int4*>(a.best_lev_y + m * 256)[lane] = lev[lane];
+  if (luma) {
+    store_u8<16, true>(a.best_rec_y + m * 256 + lane * 16, rw);
+    reinterpret_cast<int4*>(a.best_lev_c[lane >> 3] + m * 64)[lane & 7] =
+        reinterpret_cast<const int4*>(sm + kMergeL)[lane];
+  } else {
+    store_u8<8, true>(a.best_rec_c[p] + m * 64 + r * 8, rw);
+  }
+  if (lane == 0) {
+    reinterpret_cast<int4*>(a.best_modes)[m] =
+        reinterpret_cast<const int4*>(a.y_modes)[m];
+    a.best_sid[m] = a.sid;
+    a.win[m] = 1;
+  }
 }
 
 }  // namespace
@@ -636,35 +792,74 @@ extern "C" int vp8_inter_pass(const long long* planes, void* parts,
                             : launch_pass<4>(a, vec, st));
 }
 
-// ops: for U then V, 4 operands of 4 int64 each: the source patches
-// (pointer, s_mb, s_row, s_col), top (pointer, s_mb, s_col, 0), left
-// (pointer, s_mb, s_row, 0) and top-left (pointer, s_mb, 0, 0), all u8.
-// levels: (2, mbc, 4, 16) int32, rec: (2, mbc, 8, 8) int32, contiguous.
-extern "C" int vp8_trial_chroma(const long long* ops, void* levels, void* rec,
-                                int mbc, int dc_q, int ac_q, void* stream) {
-  if (mbc <= 0 || dc_q <= 0 || ac_q <= 0) return (int)cudaErrorInvalidValue;
-  TrialArgs a;
-  for (int p = 0; p < 2; ++p) {
-    const long long* d = ops + 16 * p;
-    a.src[p] = (const uint8_t*)(uintptr_t)d[0];
-    for (int k = 0; k < 3; ++k) a.src_s[p][k] = d[1 + k];
-    a.top[p] = (const uint8_t*)(uintptr_t)d[4];
-    a.top_s[p][0] = d[5];
-    a.top_s[p][1] = d[6];
-    a.left[p] = (const uint8_t*)(uintptr_t)d[8];
-    a.left_s[p][0] = d[9];
-    a.left_s[p][1] = d[10];
-    a.tl[p] = (const uint8_t*)(uintptr_t)d[12];
-    a.tl_s[p] = d[13];
+// ops: 25 int64: the luma source patches, the luma trial's recon, levels
+// and modes (contiguous, 16-byte aligned: (mbc, 16, 16) u8, u8, int16,
+// (mbc, 16) int8); the u and v source planes, each a pointer and its row
+// stride; the frozen u and v recon planes, likewise (u8, unit column
+// stride, (8 mbh, 8 mbw)); the ghost rows above u and v ((8 mbw,) u8, both
+// null at the frame top); cur_in and cur_out ((mbc,) int32, may be one);
+// the merge state, contiguous and 16-byte aligned: win (mbc,) u8, sid
+// (mbc,) int32, modes (mbc, 16) int8, luma levels (mbc, 16, 16) int16, u
+// and v levels (mbc, 4, 16) int16, luma recon (mbc, 16, 16) u8, u and v
+// recon (mbc, 8, 8) u8.  One trial at segment `sid`'s chroma quantizers:
+// every MB with cur_in <= ssim_target whose score beats it strictly gets
+// cur_out = score, win = 1 and its trial in the best buffers; every other
+// MB cur_out = cur_in and nothing else written.
+extern "C" int vp8_trial_chroma_merge(const long long* ops, int mbc, int mbw,
+                                      int sid, int ssim_target, int dc_q,
+                                      int ac_q, void* stream) {
+  if (mbc <= 0 || mbw <= 0 || mbc % mbw || dc_q <= 0 || ac_q <= 0 ||
+      256LL * mbc >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const long long mbh = mbc / mbw;
+  const auto ptr = [&](int i) { return (void*)(uintptr_t)ops[i]; };
+  MergeArgs a;
+  a.y_src = (const uint8_t*)ptr(0);
+  a.y_rec = (const uint8_t*)ptr(1);
+  a.y_lev = (const int16_t*)ptr(2);
+  a.y_modes = (const int8_t*)ptr(3);
+  bool vec = true;
+  for (int i = 0; i < 2; ++i) {
+    const long long s_rs = ops[5 + 2 * i], r_rs = ops[9 + 2 * i];
+    for (const long long rs : {s_rs, r_rs})
+      if (rs < 8 * mbw || (8 * mbh - 1) * rs + 8 * mbw - 1 >= (1LL << 31))
+        return (int)cudaErrorInvalidValue;
+    a.src[i] = (const uint8_t*)ptr(4 + 2 * i);
+    a.rec[i] = (const uint8_t*)ptr(8 + 2 * i);
+    a.ghost[i] = (const uint8_t*)ptr(12 + i);
+    a.src_rs[i] = (int)s_rs;
+    a.rec_rs[i] = (int)r_rs;
+    vec = vec && ops[4 + 2 * i] % 8 == 0 && s_rs % 8 == 0 &&
+          ops[8 + 2 * i] % 8 == 0 && r_rs % 8 == 0 && ops[12 + i] % 8 == 0;
   }
-  a.levels = (int*)levels;
-  a.rec = (int*)rec;
+  if ((a.ghost[0] == nullptr) != (a.ghost[1] == nullptr))
+    return (int)cudaErrorInvalidValue;
+  a.cur_in = (const int*)ptr(14);
+  a.cur_out = (int*)ptr(15);
+  a.win = (uint8_t*)ptr(16);
+  a.best_sid = (int*)ptr(17);
+  a.best_modes = (int8_t*)ptr(18);
+  a.best_lev_y = (int16_t*)ptr(19);
+  a.best_lev_c[0] = (int16_t*)ptr(20);
+  a.best_lev_c[1] = (int16_t*)ptr(21);
+  a.best_rec_y = (uint8_t*)ptr(22);
+  a.best_rec_c[0] = (uint8_t*)ptr(23);
+  a.best_rec_c[1] = (uint8_t*)ptr(24);
+  for (const int i : {0, 1, 2, 3, 18, 19, 20, 21, 22, 23, 24})
+    if (ops[i] % 16) return (int)cudaErrorInvalidValue;
   a.mbc = mbc;
+  a.mbw = mbw;
+  a.sid = sid;
+  a.ssim_target = ssim_target;
   a.dc_q = dc_q;
   a.ac_q = ac_q;
-  const long long threads = 8LL * mbc;
-  trial_chroma_kernel<<<(unsigned)((threads + kTrialThreads - 1) /
-                                    kTrialThreads),
-                        kTrialThreads, 0, (cudaStream_t)stream>>>(a);
+  a.dc_d = div_of(dc_q);
+  a.ac_d = div_of(ac_q);
+  const unsigned grid = (unsigned)((mbc + kPassWarps - 1) / kPassWarps);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (vec)
+    trial_chroma_merge_kernel<true><<<grid, kPassWarps * 32, 0, st>>>(a);
+  else
+    trial_chroma_merge_kernel<false><<<grid, kPassWarps * 32, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

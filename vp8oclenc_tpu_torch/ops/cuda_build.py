@@ -48,7 +48,7 @@ _SIGNATURES = {
     },
     "transform": {
         "vp8_inter_pass": [_P] * 6 + [_I] * 11 + [_P],
-        "vp8_trial_chroma": [_P, _P, _P, _I, _I, _I, _P],
+        "vp8_trial_chroma_merge": [_P] + [_I] * 6 + [_P],
     },
     # not a kernel of the encoder: the integer-rate probe of chip_smoke.py
     "probe": {

@@ -787,10 +787,9 @@ def inter_body(y, u, v, states, ref_valid, quant, ssim_target: int = -1,
         b_pack = torch.cat([b_lv_y, b_lv_u, b_lv_v,
                             torch.zeros_like(b_lv_u[:, :1])], dim=1)
         levels_pack = torch.where(applied[:, None, None], b_pack,
-                                  levels_pack).to(torch.int16)
+                                  levels_pack)
         ry, ru, rv = (_mb_where(applied, b.reshape(
-            mbh, mbw, n, n).transpose(1, 2), p, n).to(torch.uint8)
-            .contiguous()
+            mbh, mbw, n, n).transpose(1, 2), p, n).contiguous()
             for b, p, n in ((b_ry, ry, 16), (b_ru, ru, 8), (b_rv, rv, 8)))
         replaced = applied.sum(dtype=_I32)
         modes = torch.where(applied[:, None], b_modes, 0).to(torch.int8)

@@ -10,21 +10,24 @@ above, above-right) also won.  That makes all trials independent, so one
 trial is one batched step over all MBs:
 
   * the frozen neighbour rows and columns of every MB are cut from the
-    planes at once (`_frozen_luma_neighbors`, `_frozen_chroma_neighbors`),
-    border rules applied (127 above the frame, 129 left of it);
+    planes (`_frozen_luma_neighbors`, `_frozen_chroma_neighbors`), border
+    rules applied (127 above the frame, 129 left of it);
   * the luma trial walks the 16 blocks of an MB in raster order, each block
     reading the MB's own trial reconstruction for in-MB neighbours;
+  * the chroma trial (TM_PRED), the MB's three-plane score and the merge
+    of a strictly better score into the best-trial buffers follow;
   * the trials run AQ -> HQ -> UQ under per-MB masks; nothing on this path
     waits for the host.
 
-The luma and chroma trials have two versions with one contract each:
-  * `trial_luma_plain`, `trial_chroma_plain`: plain PyTorch on any
-    device, the references the CUDA kernels are held against;
-  * `trial_luma`, `trial_chroma`: for CUDA tensors they launch the
-    hand-written kernels of csrc/intra.cu and csrc/transform.cu (both
-    chroma planes in one launch), for CPU tensors they take the plain
-    versions.
-The controller around them is plain PyTorch.
+Each trial is two steps with two versions each, one contract per step:
+  * `trial_luma_plain` and `trial_chroma_merge_plain` (the chroma trial,
+    the score and the merge): plain PyTorch on any device, the references
+    the CUDA kernels are held against;
+  * `trial_luma` and `trial_chroma_merge`: for CUDA tensors they launch
+    the hand-written kernels of csrc/intra.cu and csrc/transform.cu (the
+    latter reads its frozen neighbours from the recon planes itself), for
+    CPU tensors they take the plain versions.
+The suppression after the trials is plain PyTorch.
 
 A row shard of a taller frame (the multi-GPU layer's tile ranks) needs
 two things from the shard above: its last recon row of each plane (the
@@ -35,13 +38,14 @@ row and has no winners above.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from vp8oclenc_tpu_torch.ops import transforms as T
 from vp8oclenc_tpu_torch.ops.intra import _first_min
 from vp8oclenc_tpu_torch.ops.predict import bpred_all_modes, tm_predict_8x8
-from vp8oclenc_tpu_torch.ssim_fx import mb_ssim_fx_16x16
+from vp8oclenc_tpu_torch.ssim_fx import mb_ssim_fx_16x16_plain
 
 _I32 = torch.int32
 _U8 = torch.uint8
@@ -249,44 +253,149 @@ def trial_chroma_plain(u_mb, v_mb, un, vn, dc_q: int, ac_q: int):
             *_trial_chroma(v_mb, *vn, dc_q, ac_q))
 
 
-def trial_chroma(u_mb, v_mb, un, vn, dc_q: int, ac_q: int):
-    """The chroma trial of both planes (contract of `trial_chroma_plain`):
+# The merge state of one frame's trials, carved from one zeroed byte
+# buffer: (name, dtype, per-MB shape).  The fields whose rows are whole
+# multiples of 16 bytes come first, so that every field starts 16-byte
+# aligned.
+_MERGE_FIELDS = (("lv_y", torch.int16, (16, 16)),
+                 ("lv_u", torch.int16, (4, 16)),
+                 ("lv_v", torch.int16, (4, 16)),
+                 ("rec_y", _U8, (16, 16)),
+                 ("rec_u", _U8, (8, 8)),
+                 ("rec_v", _U8, (8, 8)),
+                 ("modes", torch.int8, (16,)),
+                 ("sid", _I32, ()),
+                 ("cur", _I32, ()),
+                 ("win", torch.bool, ()))
+
+
+def merge_state(mbc: int, device) -> dict:
+    """The trials' merge state of mbc MBs, zeroed in one launch: "cur"
+    (mbc,) i32, the score after the trials so far (written by the first
+    trial); "win" (mbc,) bool, some trial won; and the best trial of each
+    MB: "sid" (mbc,) i32, "modes" (mbc, 16) i8, "lv_y" (mbc, 16, 16),
+    "lv_u", "lv_v" (mbc, 4, 16) i16 zigzag levels, "rec_y" (mbc, 16, 16),
+    "rec_u", "rec_v" (mbc, 8, 8) u8."""
+    sizes = [mbc * math.prod(shape) * dt.itemsize
+             for _, dt, shape in _MERGE_FIELDS]
+    buf = torch.zeros(sum(sizes), dtype=_U8, device=device)
+    st, off = {}, 0
+    for (name, dt, shape), n in zip(_MERGE_FIELDS, sizes):
+        st[name] = buf[off:off + n].view(dt).view(mbc, *shape)
+        off += n
+    return st
+
+
+def trial_chroma_merge_plain(y_mb, luma, u, v, ru, rv, ghosts, cur_in, st,
+                             sid: int, dc_q: int, ac_q: int,
+                             ssim_target: int) -> None:
+    """The second half of one trial, in place on the merge state `st`
+    (`merge_state`).
+
+    y_mb (mbc, 16, 16) u8 luma source patches; luma = (levels, modes, rec)
+    of `trial_luma` on them; u, v (8 mbh, 8 mbw) u8 source planes; ru, rv
+    the frozen u8 recon planes; ghosts (gu, gv): the rows above ru and rv
+    in a row shard (`_bordered_top_rows`), or (None, None) at the frame
+    top; cur_in (mbc,) i32: the score before this trial (st["cur"] itself
+    after the first).  The chroma trial of both planes at (dc_q, ac_q) from
+    the frozen neighbours, the MB's three-plane score against the luma
+    trial's recon, and where cur_in <= ssim_target and the score beats
+    cur_in strictly: st["cur"] = score, st["win"] set, the trial (with
+    `sid`) in the best fields.  Elsewhere st["cur"] = cur_in."""
+    lv_y, md, ry_t = luma
+    mbh, mbw = ru.shape[0] // 8, ru.shape[1] // 8
+    u_mb, v_mb = _plane_mb(u, 8), _plane_mb(v, 8)
+    trial = trial_chroma_plain(
+        u_mb, v_mb, _frozen_chroma_neighbors(ru, mbw, mbh, ghosts[0]),
+        _frozen_chroma_neighbors(rv, mbw, mbh, ghosts[1]), dc_q, ac_q)
+    lv_u, ru_t, lv_v, rv_t = trial
+    test = mb_ssim_fx_16x16_plain(y_mb, ry_t, u_mb, ru_t, v_mb, rv_t)
+    better = (cur_in <= ssim_target) & (test > cur_in)
+    st["cur"].copy_(torch.where(better, test, cur_in))
+    st["win"] |= better
+    for name, t in (("sid", torch.full_like(cur_in, sid)), ("modes", md),
+                    ("lv_y", lv_y), ("lv_u", lv_u), ("lv_v", lv_v),
+                    ("rec_y", ry_t), ("rec_u", ru_t), ("rec_v", rv_t)):
+        b = st[name]
+        b.copy_(torch.where(better.reshape(-1, *([1] * (b.dim() - 1))),
+                            t.to(b.dtype), b))
+
+
+def _merge_operand(t, what, dev, dtype, shape, rows=False, aligned=False):
+    """Refuse an operand of `trial_chroma_merge` that is not on the CUDA
+    device dev, of dtype and shape, and contiguous (for aligned=True also
+    16-byte aligned: the kernel moves its rows as vectors) or, for
+    rows=True, a plane of unit column stride."""
+    if t.device != dev:
+        raise ValueError(f"trial_chroma_merge: {what} must be a CUDA tensor "
+                         f"on {dev}, or every input on the CPU; got "
+                         f"{t.device}")
+    if t.dtype != dtype or tuple(t.shape) != shape or (
+            t.stride(-1) != 1 if rows
+            else not t.is_contiguous() or aligned and t.data_ptr() % 16):
+        kind = "unit column stride" if rows else \
+            "16-byte aligned contiguous" if aligned else "contiguous"
+        raise ValueError(f"trial_chroma_merge: {what} must be a {kind} "
+                         f"{dtype} tensor of shape {shape}, got {t.dtype} "
+                         f"{tuple(t.shape)} strides {t.stride()}")
+
+
+def trial_chroma_merge(y_mb, luma, u, v, ru, rv, ghosts, cur_in, st,
+                       sid: int, dc_q: int, ac_q: int,
+                       ssim_target: int) -> None:
+    """The second half of one trial (contract of `trial_chroma_merge_plain`):
     one csrc/transform.cu launch for CUDA tensors, the plain version for
-    CPU tensors.  Operands are read through their strides."""
-    if u_mb.device.type == "cpu":
-        return trial_chroma_plain(u_mb, v_mb, un, vn, dc_q, ac_q)
-    mbc = u_mb.shape[0] if u_mb.dim() == 3 else 0
-    desc = []
-    for src, (top, left, tl) in ((u_mb, un), (v_mb, vn)):
-        for t, what, shape in ((src, "source", (mbc, 8, 8)),
-                               (top, "ctop", (mbc, 8)),
-                               (left, "cleft", (mbc, 8)),
-                               (tl, "ctl", (mbc,))):
-            if t.device != u_mb.device or t.device.type != "cuda":
-                raise ValueError(f"trial_chroma: {what} must be a CUDA "
-                                 f"tensor on {u_mb.device}, or every input "
-                                 f"on the CPU")
-            if t.dtype != _U8 or tuple(t.shape) != shape or mbc == 0:
-                raise ValueError(f"trial_chroma: {what} must be a uint8 "
-                                 f"tensor of shape {shape} with mbc > 0, "
-                                 f"got {t.dtype} {tuple(t.shape)}")
-            st = t.stride()
-            desc += [t.data_ptr(), *st, *([0] * (3 - len(st)))]
+    CPU tensors."""
+    if y_mb.device.type == "cpu":
+        return trial_chroma_merge_plain(y_mb, luma, u, v, ru, rv, ghosts,
+                                        cur_in, st, sid, dc_q, ac_q,
+                                        ssim_target)
+    dev = y_mb.device
+    if dev.type != "cuda":
+        raise ValueError(f"trial_chroma_merge: operands must lie on a CUDA "
+                         f"device or on the CPU, got {dev}")
+    mbc = y_mb.shape[0]
+    h2, w2 = ru.shape
+    if h2 % 8 or w2 % 8 or (h2 // 8) * (w2 // 8) != mbc:
+        raise ValueError(f"trial_chroma_merge: a recon plane of {h2}x{w2} "
+                         f"does not hold {mbc} MBs")
+    lv_y, md, ry_t = luma
+    ops = []
+    for t, what, dt, shape in ((y_mb, "y_mb", _U8, (mbc, 16, 16)),
+                               (ry_t, "the luma recon", _U8, (mbc, 16, 16)),
+                               (lv_y, "the luma levels", torch.int16,
+                                (mbc, 16, 16)),
+                               (md, "the luma modes", torch.int8, (mbc, 16))):
+        _merge_operand(t, what, dev, dt, shape, aligned=True)
+        ops.append(t.data_ptr())
+    for t, what in ((u, "u"), (v, "v"), (ru, "ru"), (rv, "rv")):
+        _merge_operand(t, what, dev, _U8, (h2, w2), rows=True)
+        ops += [t.data_ptr(), t.stride(0)]
+    if (ghosts[0] is None) != (ghosts[1] is None):
+        raise ValueError("trial_chroma_merge: both ghost rows or neither")
+    for g in ghosts:
+        if g is not None:
+            _merge_operand(g, "a ghost row", dev, _U8, (w2,))
+        ops.append(0 if g is None else g.data_ptr())
+    _merge_operand(cur_in, "cur_in", dev, _I32, (mbc,))
+    ops.append(cur_in.data_ptr())
+    fields = {name: (dt, shape) for name, dt, shape in _MERGE_FIELDS}
+    for name in ("cur", "win", "sid", "modes", "lv_y", "lv_u", "lv_v",
+                 "rec_y", "rec_u", "rec_v"):
+        dt, shape = fields[name]
+        _merge_operand(st[name], f'st["{name}"]', dev, dt, (mbc, *shape),
+                       aligned=bool(shape))
+        ops.append(st[name].data_ptr())
     from vp8oclenc_tpu_torch.ops import cuda_build
-    dev = u_mb.device
-    levels = torch.empty((2, mbc, 4, 16), dtype=_I32, device=dev)
-    rec = torch.empty((2, mbc, 8, 8), dtype=_I32, device=dev)
-    rc = cuda_build.library("transform").vp8_trial_chroma(
-        (ctypes.c_longlong * len(desc))(*desc),
-        ctypes.c_void_p(levels.data_ptr()), ctypes.c_void_p(rec.data_ptr()),
-        mbc, int(dc_q), int(ac_q),
+    rc = cuda_build.library("transform").vp8_trial_chroma_merge(
+        (ctypes.c_longlong * len(ops))(*ops), mbc, w2 // 8, int(sid),
+        int(ssim_target), int(dc_q), int(ac_q),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    cuda_build.check(rc, "vp8_trial_chroma")
-    trial_chroma.launches += 1
-    return levels[0], rec[0], levels[1], rec[1]
+    cuda_build.check(rc, "vp8_trial_chroma_merge")
+    trial_chroma_merge.launches += 1
 
 
-trial_chroma.launches = 0
+trial_chroma_merge.launches = 0
 
 
 def intra_replace_device(y, u, v, recon_y, recon_u, recon_v, cur_ssim,
@@ -305,37 +414,23 @@ def intra_replace_device(y, u, v, recon_y, recon_u, recon_v, cur_ssim,
     shard: None, or the row shard the planes are (ops/inter.inter_body);
     its `from_above(t)` returns the shard above's t, or None at the frame
     top."""
-    mbc = mbw * mbh
     ghosts = (None, None, None) if shard is None else \
         shard.from_above([p[-1] for p in (recon_y, recon_u, recon_v)])
     ftop, fleft = _frozen_luma_neighbors(recon_y, mbw, mbh, ghosts[0])
-    un = _frozen_chroma_neighbors(recon_u, mbw, mbh, ghosts[1])
-    vn = _frozen_chroma_neighbors(recon_v, mbw, mbh, ghosts[2])
     y_mb = _plane_mb(y, 16).contiguous()
-    u_mb = _plane_mb(u, 8)
-    v_mb = _plane_mb(v, 8)
 
+    st = merge_state(mbw * mbh, y.device)
     cur = cur_ssim
-    win = torch.zeros_like(cur_ssim, dtype=torch.bool)
-    best = None
     for sid in (2, 1, 0):            # AQ -> HQ -> UQ
-        active = cur <= ssim_target
-        lv_y, md, ry_t = trial_luma(y_mb, ftop, fleft, int(seg_y_dc[sid]),
-                                    int(seg_y_ac[sid]))
-        lv_u, ru_t, lv_v, rv_t = trial_chroma(
-            u_mb, v_mb, un, vn, int(seg_uv_dc[sid]), int(seg_uv_ac[sid]))
-        test = mb_ssim_fx_16x16(y_mb, ry_t, u_mb, ru_t, v_mb, rv_t)
+        luma = trial_luma(y_mb, ftop, fleft, int(seg_y_dc[sid]),
+                          int(seg_y_ac[sid]))
         # strictly better only; a later, finer trial overwrites an earlier
         # winner
-        better = active & (test > cur)
-        cur = torch.where(better, test, cur)
-        win = win | better
-        trial = (torch.full_like(cur_ssim, sid), md, lv_y, lv_u, lv_v, ry_t,
-                 ru_t, rv_t)
-        if best is None:
-            best = [torch.zeros_like(t) for t in trial]
-        best = [torch.where(better.reshape(-1, *([1] * (t.dim() - 1))), t, b)
-                for t, b in zip(trial, best)]
+        trial_chroma_merge(y_mb, luma, u, v, recon_u, recon_v, ghosts[1:],
+                           cur, st, sid, int(seg_uv_dc[sid]),
+                           int(seg_uv_ac[sid]), ssim_target)
+        cur = st["cur"]
+    win = st["win"]
 
     # suppression: a winner is applied only when none of the 4 neighbour MBs
     # feeding its prediction (left, above-left, above, above-right) also won
@@ -347,4 +442,5 @@ def intra_replace_device(y, u, v, recon_y, recon_u, recon_v, cur_ssim,
     conflict = pw[1:, :-2] | pw[:-1, :-2] | pw[:-1, 1:-1] | pw[:-1, 2:]
     applied = win & ~conflict.reshape(-1)
     new_cur = torch.where(applied, cur, cur_ssim)
-    return (applied, *best, new_cur)
+    return (applied, *(st[k] for k in ("sid", "modes", "lv_y", "lv_u", "lv_v",
+                                       "rec_y", "rec_u", "rec_v")), new_cur)

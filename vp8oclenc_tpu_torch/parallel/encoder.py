@@ -316,7 +316,7 @@ def launch_counts() -> dict:
             "qpel_search": IN.qpel_search.launches,
             "qpel_search_shard": IN.qpel_search.shard_launches,
             "trial_luma": IR.trial_luma.launches,
-            "trial_chroma": IR.trial_chroma.launches,
+            "trial_chroma_merge": IR.trial_chroma_merge.launches,
             "inter_pass": IN.inter_pass.launches,
             "mb_ssim": S.mb_ssim_cuda.launches}
 
